@@ -1,0 +1,84 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips without an NVIDIA card (a CUDA kernel
+has no CPU mode). On the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
+
+Shapes are chosen for the edges of the kernels' tiling: widths that are not
+multiples of the 32-pixel tile, heights not multiples of 8, the smallest
+images (2 pixels, where every pixel is a reflected border), one channel.
+"""
+
+import pytest
+import torch
+
+from dynamo_depth_torch.ops.kernels import launch_counts, photometric, reset_launch_counts, warp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _scale_tol(ref, rel):
+    return rel * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 9, 13, 7, 11), (1, 3, 2, 2, 5, 3), (2, 1, 37, 70, 37, 70), (1, 4, 8, 32, 16, 64)])
+def test_warp_kernels_match_plain(dev, shape):
+    B, C, H, W, Ho, Wo = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    img = torch.rand(B, C, H, W, device=dev, generator=g, requires_grad=True)
+    grid = (torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2).requires_grad_()
+    cot = torch.randn(B, C, Ho, Wo, device=dev, generator=g)
+
+    reset_launch_counts()
+    out = warp.grid_sample(img, grid)
+    d_img, d_grid = torch.autograd.grad(out, (img, grid), cot)
+    assert launch_counts()["warp_fwd"] == 1 and launch_counts()["warp_bwd"] == 1
+    out_p = warp.grid_sample_plain(img, grid)
+    d_img_p, d_grid_p = torch.autograd.grad(out_p, (img, grid), cot)
+    # float32 lerps with and without fused multiply-adds; d_image summed by
+    # atomics in no fixed order.
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d_img, d_img_p, rtol=0, atol=_scale_tol(d_img_p, 1e-5))
+    torch.testing.assert_close(d_grid, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+
+    # The image needs no gradient: the kernel skips d_image.
+    out2 = warp.grid_sample(img.detach(), grid)
+    (d_grid2,) = torch.autograd.grad(out2, grid, cot)
+    torch.testing.assert_close(d_grid2, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 10, 12), (1, 3, 4, 4), (1, 3, 2, 2), (2, 1, 37, 70), (1, 3, 192, 640)])
+def test_photometric_kernels_match_plain(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(1)
+    pred = torch.rand(*shape, device=dev, generator=g, requires_grad=True)
+    target = torch.rand(*shape, device=dev, generator=g, requires_grad=True)
+    cot = torch.randn(shape[0], 1, shape[2], shape[3], device=dev, generator=g)
+
+    reset_launch_counts()
+    out = photometric.reprojection_loss(pred, target, 0.85)
+    d_pred, d_target = torch.autograd.grad(out, (pred, target), cot)
+    assert launch_counts()["photometric_fwd"] == 1 and launch_counts()["photometric_bwd"] == 1
+    out_p = photometric.reprojection_loss_plain(pred, target, 0.85)
+    d_pred_p, d_target_p = torch.autograd.grad(out_p, (pred, target), cot)
+    # Window sums in another order, amplified by the SSIM ratios.
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d_pred, d_pred_p, rtol=0, atol=_scale_tol(d_pred_p, 1e-4))
+    torch.testing.assert_close(d_target, d_target_p, rtol=0, atol=_scale_tol(d_target_p, 1e-4))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.rand(1, 3, 6, 8, device=dev)
+    with pytest.raises(ValueError):
+        warp.warp_fwd(x.double(), torch.rand(1, 5, 7, 2, device=dev))
+    with pytest.raises(ValueError):
+        photometric.photometric_fwd(x[..., ::2], x[..., ::2], 0.85)  # not contiguous
+    with pytest.raises(ValueError):
+        photometric.photometric_fwd(x, torch.rand(1, 3, 6, 9, device=dev), 0.85)
