@@ -10,16 +10,22 @@ Phases (any failure exits non-zero, nothing is caught):
    process per source, into ``build/kernels``);
 3. hold every kernel against its plain PyTorch version (and the warp against
    ``F.grid_sample``) at the main path's shapes: batch 3, 3 channels, 192x640;
+   the warp on two grids, a uniform random one (every tile gathers from
+   device memory) and the main path's (identity plus ego-motion from a smooth
+   5-80 m depth, ``training/synthetic.py::ego_motion_grid``, where K1 stages
+   each tile's source window in shared memory);
 4. time every kernel, its plain version and the one PyTorch call that
-   computes the same function where there is one (CUDA events, median of 30
-   after warm-up) beside its bound: the bytes it must move over the card's
-   memory rate, or its operations over the card's float32 rate;
+   computes the same function where there is one (device time from the
+   profiler, and CUDA events around one call) beside its bound: the bytes it
+   must move over the card's memory rate, or its operations over the card's
+   float32 rate; the warp on both grids, K1 also with its staging off;
 5. one ``fine_tune`` step on the card against the same step on the CPU (the
    plain versions) from the same weights at 64x96;
 6. the main path: the LiteMono ``fine_tune`` step at 192x640, batch 3,
    float32 (KITTI headline config, random weights from seed 0): 2 warm-up
    and 5 timed steps, finite losses, moving weights, and 6 launches per step
-   of each of the four kernels.
+   of each of the four kernels; then one profiled step, with each kernel's
+   own device time inside it.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -111,7 +117,8 @@ def main():
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.ops import ground_plane
     from dynamo_depth_torch.ops.kernels import build, launch_counts, photometric, reset_launch_counts, warp
-    from dynamo_depth_torch.training.synthetic import synthetic_batch
+    from dynamo_depth_torch.ops.geometry import pixel_grid
+    from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
     from dynamo_depth_torch.training.trainer import Trainer
 
     # ---- 1. the card -------------------------------------------------------
@@ -146,32 +153,39 @@ def main():
     pred = torch.rand(B, C, H, W, device=dev, generator=gen)
     target = torch.rand(B, C, H, W, device=dev, generator=gen)
     g_photo = torch.randn(B, 1, H, W, device=dev, generator=gen)
+    ego = ego_motion_grid(B, H, W, seed=0).to(dev)
     errors = {}
 
     def scale_tol(ref, rel=1e-5):
         return rel * max(1.0, float(ref.abs().max()))
 
-    out_k = warp.warp_fwd(img, grid)
-    img_r, grid_r = img.clone().requires_grad_(), grid.clone().requires_grad_()
-    out_p = warp.grid_sample_plain(img_r, grid_r)
-    d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_r, grid_r), g_warp)
-    img_l, grid_l = img.clone().requires_grad_(), grid.clone().requires_grad_()
-    out_l = F.grid_sample(img_l, grid_l, mode="bilinear", padding_mode="border", align_corners=True)
-    d_img_l, d_grid_l = torch.autograd.grad(out_l, (img_l, grid_l), g_warp)
-    d_img_k, d_grid_k = warp.warp_bwd(img, grid, g_warp, True)
-    _, d_grid_k2 = warp.warp_bwd(img, grid, g_warp, False)
-    torch.cuda.synchronize()
-    # Values: one lerp, float32 with or without fused multiply-adds.
-    errors["warp_fwd"] = max_err(out_k, out_p)
-    check("warp_fwd vs plain", errors["warp_fwd"], 1e-5)
-    check("warp_fwd vs F.grid_sample", max_err(out_k, out_l), 1e-5)
-    # d_grid is a 3-term sum scaled by (W-1)/2 = 319.5: 1e-5 of its scale.
-    errors["warp_bwd"] = max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p))
-    check("warp_bwd d_grid vs plain", errors["warp_bwd"], scale_tol(d_grid_p))
-    check("warp_bwd d_grid vs F.grid_sample", max_err(d_grid_k, d_grid_l), scale_tol(d_grid_l, 1e-4))
-    # d_image: atomicAdd sums in no fixed order.
-    check("warp_bwd d_image vs plain", max_err(d_img_k, d_img_p), scale_tol(d_img_p))
-    check("warp_bwd d_image vs F.grid_sample", max_err(d_img_k, d_img_l), scale_tol(d_img_l))
+    errors["warp_fwd"] = errors["warp_bwd"] = 0.0
+    for label, gr in (("uniform grid", grid), ("main-path grid", ego)):
+        out_k = warp.warp_fwd(img, gr)
+        out_kd = warp.warp_fwd_direct(img, gr)
+        img_r, grid_r = img.clone().requires_grad_(), gr.clone().requires_grad_()
+        out_p = warp.grid_sample_plain(img_r, grid_r)
+        d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_r, grid_r), g_warp)
+        img_l, grid_l = img.clone().requires_grad_(), gr.clone().requires_grad_()
+        out_l = F.grid_sample(img_l, grid_l, mode="bilinear", padding_mode="border", align_corners=True)
+        d_img_l, d_grid_l = torch.autograd.grad(out_l, (img_l, grid_l), g_warp)
+        d_img_k, d_grid_k = warp.warp_bwd(img, gr, g_warp, True)
+        _, d_grid_k2 = warp.warp_bwd(img, gr, g_warp, False)
+        torch.cuda.synchronize()
+        print(f"  {label}: {100 * warp.staged_tile_share(gr, H, W, C):.2f}% of K1's tiles staged")
+        # Values: one lerp, float32 with or without fused multiply-adds.
+        err = max(max_err(out_k, out_p), max_err(out_kd, out_p))
+        errors["warp_fwd"] = max(errors["warp_fwd"], err)
+        check(f"warp_fwd vs plain ({label}; staged and direct)", err, 1e-5)
+        check(f"warp_fwd vs F.grid_sample ({label})", max_err(out_k, out_l), 1e-5)
+        # d_grid is a 3-term sum scaled by (W-1)/2 = 319.5: 1e-5 of its scale.
+        err = max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p))
+        errors["warp_bwd"] = max(errors["warp_bwd"], err)
+        check(f"warp_bwd d_grid vs plain ({label})", err, scale_tol(d_grid_p))
+        check(f"warp_bwd d_grid vs F.grid_sample ({label})", max_err(d_grid_k, d_grid_l), scale_tol(d_grid_l, 1e-4))
+        # d_image: atomicAdd sums in no fixed order.
+        check(f"warp_bwd d_image vs plain ({label})", max_err(d_img_k, d_img_p), scale_tol(d_img_p))
+        check(f"warp_bwd d_image vs F.grid_sample ({label})", max_err(d_img_k, d_img_l), scale_tol(d_img_l))
 
     out_k = photometric.photometric_fwd(pred, target, 0.85)
     pred_r, target_r = pred.clone().requires_grad_(), target.clone().requires_grad_()
@@ -187,12 +201,21 @@ def main():
     errors["photometric_bwd"] = max(max_err(d_pred_k, d_pred_p), max_err(d_pred_k2, d_pred_p))
     check("photometric_bwd d_pred vs plain", errors["photometric_bwd"], scale_tol(d_pred_p, 1e-4))
     check("photometric_bwd d_target vs plain", max_err(d_target_k, d_target_p), scale_tol(d_target_p, 1e-4))
+    # The clip's edge: equal windows give num == den and s = 0 exactly, where
+    # the gradient still flows.
+    d_eq_k, _ = photometric.photometric_bwd(pred, pred, g_photo, 0.85, False)
+    pred_e = pred.clone().requires_grad_()
+    (d_eq_p,) = torch.autograd.grad(photometric.reprojection_loss_plain(pred_e, pred, 0.85), pred_e, g_photo)
+    torch.cuda.synchronize()
+    check("photometric_bwd d_pred vs plain (target = pred)", max_err(d_eq_k, d_eq_p), scale_tol(d_eq_p, 1e-4))
 
     # ---- 4. timing ---------------------------------------------------------
     P = B * H * W
-    grid_req = grid.clone().requires_grad_()
-    out_plain_w = warp.grid_sample_plain(img, grid_req)
-    out_lib_w = F.grid_sample(img, grid_req, mode="bilinear", padding_mode="border", align_corners=True)
+    px = (ego + 1.0) * 0.5 * torch.tensor([W - 1.0, H - 1.0], device=dev)
+    shift = (px - pixel_grid(H, W, dev)[:, :2].reshape(1, H, W, 2)).norm(dim=-1)
+    print(f"main-path grid: displacement max {float(shift.max()):.2f} px, median {float(shift.median()):.2f} px; "
+          f"K1 tiles staged: {100 * warp.staged_tile_share(ego, H, W, C):.2f}% "
+          f"(uniform grid: {100 * warp.staged_tile_share(grid, H, W, C):.2f}%)")
     pred_req = pred.clone().requires_grad_()
     out_plain_ph = photometric.reprojection_loss_plain(pred_req, target, 0.85)
     # bytes and float32 operations per output pixel at C = 3 (each input
@@ -203,46 +226,59 @@ def main():
         "photometric_fwd": (4 * C + 4 * C + 4, C * (5 * 9 + 20) + 6),
         "photometric_bwd": (4 * C + 4 * C + 4 + 4 * C, C * (5 * 9 + 40 + 4 * 9 * 2 + 12)),
     }
-    calls = {  # kernel, plain version, library call (None: no single call)
-        "warp_fwd": (
-            lambda: warp.warp_fwd(img, grid),
-            lambda: warp.grid_sample_plain(img, grid),
-            lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True),
-        ),
-        "warp_bwd": (
-            lambda: warp.warp_bwd(img, grid, g_warp, False),
-            lambda: torch.autograd.grad(out_plain_w, grid_req, g_warp, retain_graph=True),
-            lambda: torch.autograd.grad(out_lib_w, grid_req, g_warp, retain_graph=True),
-        ),
-        "photometric_fwd": (
-            lambda: photometric.photometric_fwd(pred, target, 0.85),
-            lambda: photometric.reprojection_loss_plain(pred, target, 0.85),
-            None,
-        ),
-        "photometric_bwd": (
-            lambda: photometric.photometric_bwd(pred, target, g_photo, 0.85, False),
-            lambda: torch.autograd.grad(out_plain_ph, pred_req, g_photo, retain_graph=True),
-            None,
-        ),
-    }
+
+    def warp_calls(gr):
+        g_req = gr.clone().requires_grad_()
+        out_plain = warp.grid_sample_plain(img, g_req)
+        out_lib = F.grid_sample(img, g_req, mode="bilinear", padding_mode="border", align_corners=True)
+        return {
+            "warp_fwd": (
+                lambda: warp.warp_fwd(img, gr),
+                lambda: warp.grid_sample_plain(img, gr),
+                lambda: F.grid_sample(img, gr, mode="bilinear", padding_mode="border", align_corners=True),
+            ),
+            "warp_fwd_direct": (lambda: warp.warp_fwd_direct(img, gr), None, None),
+            "warp_bwd": (
+                lambda: warp.warp_bwd(img, gr, g_warp, False),
+                lambda: torch.autograd.grad(out_plain, g_req, g_warp, retain_graph=True),
+                lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True),
+            ),
+        }
+
+    calls = {}  # (kernel, grid): kernel, plain version, library call (None: no single call)
+    for label, gr in (("uniform", grid), ("main", ego)):
+        calls.update({(k, label): fns for k, fns in warp_calls(gr).items()})
+    calls[("photometric_fwd", None)] = (
+        lambda: photometric.photometric_fwd(pred, target, 0.85),
+        lambda: photometric.reprojection_loss_plain(pred, target, 0.85),
+        None,
+    )
+    calls[("photometric_bwd", None)] = (
+        lambda: photometric.photometric_bwd(pred, target, g_photo, 0.85, False),
+        lambda: torch.autograd.grad(out_plain_ph, pred_req, g_photo, retain_graph=True),
+        None,
+    )
     # ms: device time (all kernels of one call, torch.profiler); wall_ms:
     # CUDA events around one call, which include the host's launch overhead.
     timings, wall = {}, {}
-    for k, fns in calls.items():
+    for key, fns in calls.items():
         dev_t = [None if fn is None else device_ms(fn) for fn in fns]
         wall_t = [None if fn is None else median_ms(fn) for fn in fns]
         # Without device activity in the profile, fall back to the events.
-        timings[k] = [d if d is not None or w is None else w for d, w in zip(dev_t, wall_t)]
-        wall[k] = wall_t
-    del out_plain_w, out_lib_w, out_plain_ph
+        timings[key] = [d if d is not None or w is None else w for d, w in zip(dev_t, wall_t)]
+        wall[key] = wall_t
+    del calls, out_plain_ph
     bounds = {}
     print(f"timing (ms; device time from the profiler, wall = events around one call) at B={B} C={C} {H}x{W} on {smi}:")
-    for k, (ms, plain_ms, lib_ms) in timings.items():
-        nbytes, nops = work[k][0] * P, work[k][1] * P
+    for (k, label), (ms, plain_ms, lib_ms) in timings.items():
+        nbytes, nops = work[k.replace("_direct", "")][0] * P, work[k.replace("_direct", "")][1] * P
         t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
         bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} (wall {wall[k][2]:.4f})"
-        print(f"  {k}: kernel {ms:.4f} (wall {wall[k][0]:.4f}) | plain {plain_ms:.4f} (wall {wall[k][1]:.4f}) "
+        w = wall[(k, label)]
+        plain = "n/a" if plain_ms is None else f"{plain_ms:.4f} (wall {w[1]:.4f})"
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} (wall {w[2]:.4f})"
+        where = "" if label is None else f" [{label} grid]"
+        print(f"  {k}{where}: kernel {ms:.4f} (wall {w[0]:.4f}) | plain {plain} "
               f"| library {lib} | bound {bounds[k][0]:.4f} ({bounds[k][1]})")
 
     # ---- 5. the step on the card against the step on the CPU --------------
@@ -337,6 +373,16 @@ def main():
         print(f"  {_self_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
     ours = sum(_self_device_us(e) for e in events if any(n in e.key for n in ("warp_", "photometric_")))
     print(f"  the four port kernels: {ours / 1e3:.3f} ms ({100 * ours / 1e3 / max(busy_ms, 1e-9):.2f}% of device time)")
+    in_step = {}  # device ms of one launch inside the step, by kernel
+    for k in ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd"):
+        mine = [e for e in events if f"{k}_kernel" in e.key]
+        n = sum(e.count for e in mine)
+        if n != 6:
+            raise SystemExit(f"{k}: {n} launches in the profiled step, expected 6")
+        in_step[k] = sum(_self_device_us(e) for e in mine) / 1e3 / n
+        bench = timings[(k, "main" if k.startswith("warp") else None)][0]
+        print(f"  {k}: {in_step[k]:.4f} ms per launch in the step (x{n}), {bench:.4f} ms alone"
+              f"{' on the main-path grid' if k.startswith('warp') else ''}")
 
     # ---- kernels line, result line -----------------------------------------
     sources = {
@@ -347,13 +393,23 @@ def main():
     }
     kernels = []
     for k, (src, replaces) in sources.items():
-        ms_k, plain_ms, lib_ms = timings[k]
-        kernels.append({
+        warp_k = k.startswith("warp")
+        ms_k, plain_ms, lib_ms = timings[(k, "uniform" if warp_k else None)]
+        entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[k], "launches_per_step": counts[k] / steps, "max_abs_err": errors[k],
             "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-            "library_ms": lib_ms, "wall_ms": wall[k][0],
-        })
+            "library_ms": lib_ms, "wall_ms": wall[(k, "uniform" if warp_k else None)][0],
+            "in_step_ms": in_step[k],
+        }
+        if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
+            ms_m, plain_m, lib_m = timings[(k, "main")]
+            entry.update({"ms_main_grid": ms_m, "plain_ms_main_grid": plain_m, "library_ms_main_grid": lib_m,
+                          "wall_ms_main_grid": wall[(k, "main")][0]})
+        if k == "warp_fwd":
+            entry.update({"direct_ms": timings[("warp_fwd_direct", "uniform")][0],
+                          "direct_ms_main_grid": timings[("warp_fwd_direct", "main")][0]})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,29 +8,54 @@
 //
 // Bound on the H100: bytes. Per output pixel and 3 channels the forward does
 // ~15 flops against 32 bytes it must move (8 of grid, 12 of taps, 12 of
-// output); the backward likewise (grid and gradient in, d_grid out). The
-// design therefore moves each byte once: one thread per output pixel reads
-// its grid point once, does the unnormalize / border clamp / floor / clip in
-// registers, reads the four taps of every channel (neighbouring threads read
-// neighbouring taps, so the gathers mostly hit the same cache lines) and
-// writes each channel's output once, coalesced across the warp. No packed
-// tap tensor or intermediate coordinate tensor goes through device memory,
-// which the TPU version needed for its tiling.
+// output); the backward likewise (grid and gradient in, d_grid out).
 //
-// The backward sums the coordinate gradient over channels in registers and
-// writes d_grid once per pixel; it is zero where the clamp saturates (the
-// coordinate lies outside [0, size-1]). d_image, needed only when the image
-// requires a gradient, is the scatter-add transpose of the four taps, done
-// with atomicAdd into a zeroed buffer, so its sums run in no fixed order.
+// K1, designed for Hopper:
+// - Tile: a block of 32x8 threads owns a 64x8 output tile, batch on
+//   blockIdx.z; offsets within a plane are 32-bit, with no 64-bit division.
+// - Per-thread work: 2 neighbouring output pixels of one row. Their grid
+//   points come in one 16-byte load, and each channel's two outputs leave as
+//   one 8-byte store (when Wo is even; scalar accesses otherwise and at the
+//   ragged right edge).
+// - Staging: the block reduces the bounding box of its tap origins (warp
+//   `__reduce_min/max_sync`, then shared memory). Where that box grown by one
+//   row and column, times C, fits kStageFloats (24 KB), the block copies the
+//   source window into shared memory with coalesced row loads and takes its
+//   4 * C taps there. The main path's grid (identity plus ego-motion and a
+//   few to tens of pixels of flow) lands in this branch for nearly every
+//   tile. Otherwise (a grid that scatters the tile's samples, such as a
+//   uniform random one) the block gathers its taps from device memory.
+//   Both branches are the kernel; `warp_fwd_staged` sets the budget, 0
+//   forcing the direct gathers, so the two can be timed on one grid.
+//
+// K2: one thread per output pixel reads its grid point once, does the
+// unnormalize / border clamp / floor / clip in registers, reads the four
+// taps of every channel, sums the coordinate gradient over channels in
+// registers and writes d_grid once per pixel; it is zero where the clamp
+// saturates (the coordinate lies outside [0, size-1]). d_image, needed only
+// when the image requires a gradient, is the scatter-add transpose of the
+// four taps, done with atomicAdd into a zeroed buffer, so its sums run in no
+// fixed order.
 //
 // Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out
-// (B, C, Ho, Wo); all float32, contiguous. H, W >= 2.
+// (B, C, Ho, Wo); all float32, contiguous. H, W >= 2; H * W and Ho * Wo
+// below 2^31.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K2: one output pixel per thread
+
+// K1 tiling.
+constexpr int FWD_TX = 32, FWD_TY = 8;  // threads per block
+constexpr int FWD_PX = 2;               // output pixels per thread, along a row
+constexpr int FWD_TW = FWD_TX * FWD_PX; // output tile width (64); height FWD_TY
+constexpr int kStageFloats = 6144;      // shared-memory window budget, floats
 
 struct Coord {
   int i0;      // tap origin, in [0, size - 2]
@@ -50,26 +75,96 @@ __device__ __forceinline__ Coord unnormalize(float g, int size) {
   return r;
 }
 
-__global__ void warp_fwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
-                                float* __restrict__ out, int B, int C, int H, int W, int Ho,
-                                int Wo) {
-  const long long P = static_cast<long long>(Ho) * Wo;
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= B * P) return;
-  const int b = static_cast<int>(n / P);
-  const long long p = n - b * P;
+__global__ void __launch_bounds__(FWD_TX * FWD_TY)
+    warp_fwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
+                    float* __restrict__ out, int C, int H, int W, int Ho, int Wo,
+                    int stage_floats, bool vec) {
+  __shared__ float win[kStageFloats];
+  __shared__ int box[4][FWD_TY];  // per warp: min x0, max x0, min y0, max y0
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ox = blockIdx.x * FWD_TW + tx * FWD_PX;
+  const int oy = blockIdx.y * FWD_TY + ty;
+  const int n = oy < Ho ? min(FWD_PX, Wo - ox) : 0;  // this thread's pixels (may be <= 0)
+  const int at = oy * Wo + ox;                        // offset within an output plane
+  const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
 
-  const Coord cx = unnormalize(grid[2 * n], W);
-  const Coord cy = unnormalize(grid[2 * n + 1], H);
-  const long long HW = static_cast<long long>(H) * W;
-  const float* src = img + b * C * HW + static_cast<long long>(cy.i0) * W + cx.i0;
-  float* dst = out + b * C * P + p;
+  float g[2 * FWD_PX];
+  const float* gp = grid + 2 * (b * P + at);
+  if (vec && n == FWD_PX) {
+    const float4 v = *reinterpret_cast<const float4*>(gp);
+    g[0] = v.x; g[1] = v.y; g[2] = v.z; g[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2 * FWD_PX; ++k) g[k] = k < 2 * n ? gp[k] : 0.f;
+  }
+  Coord cx[FWD_PX], cy[FWD_PX];
+  int xmin = INT_MAX, xmax = INT_MIN, ymin = INT_MAX, ymax = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < FWD_PX; ++k) {
+    cx[k] = unnormalize(g[2 * k], W);
+    cy[k] = unnormalize(g[2 * k + 1], H);
+    if (k < n) {
+      xmin = min(xmin, cx[k].i0); xmax = max(xmax, cx[k].i0);
+      ymin = min(ymin, cy[k].i0); ymax = max(ymax, cy[k].i0);
+    }
+  }
+
+  // Bounding box of the block's tap origins.
+  xmin = __reduce_min_sync(0xffffffffu, xmin);
+  xmax = __reduce_max_sync(0xffffffffu, xmax);
+  ymin = __reduce_min_sync(0xffffffffu, ymin);
+  ymax = __reduce_max_sync(0xffffffffu, ymax);
+  if (tx == 0) {
+    box[0][ty] = xmin; box[1][ty] = xmax; box[2][ty] = ymin; box[3][ty] = ymax;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < FWD_TY; ++w) {
+    xmin = min(xmin, box[0][w]); xmax = max(xmax, box[1][w]);
+    ymin = min(ymin, box[2][w]); ymax = max(ymax, box[3][w]);
+  }
+  const int bw = xmax - xmin + 2, bh = ymax - ymin + 2;
+  const bool staged = xmax >= xmin && static_cast<long long>(C) * bw * bh <= stage_floats;
+
+  const float* src = img + b * C * HW;
+  if (staged) {  // uniform over the block
+    for (int r = ty; r < C * bh; r += FWD_TY) {
+      const int c = r / bh, yy = r - c * bh;
+      const float* row = src + c * HW + (ymin + yy) * W + xmin;
+      float* dst = win + r * bw;
+      for (int col = tx; col < bw; col += FWD_TX) dst[col] = __ldg(row + col);
+    }
+    __syncthreads();
+  }
+
+  float* dst = out + b * C * P + at;
   for (int c = 0; c < C; ++c) {
-    const float* s = src + c * HW;
-    const float v00 = s[0], v01 = s[1], v10 = s[W], v11 = s[W + 1];
-    const float top = v00 + (v01 - v00) * cx.w;
-    const float bot = v10 + (v11 - v10) * cx.w;
-    dst[c * P] = top + (bot - top) * cy.w;
+    float v[FWD_PX];
+#pragma unroll
+    for (int k = 0; k < FWD_PX; ++k) {
+      float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
+      if (k < n) {
+        if (staged) {
+          const float* s = win + (c * bh + cy[k].i0 - ymin) * bw + cx[k].i0 - xmin;
+          v00 = s[0]; v01 = s[1]; v10 = s[bw]; v11 = s[bw + 1];
+        } else {
+          const float* s = src + c * HW + cy[k].i0 * W + cx[k].i0;
+          v00 = __ldg(s); v01 = __ldg(s + 1); v10 = __ldg(s + W); v11 = __ldg(s + W + 1);
+        }
+      }
+      const float top = v00 + (v01 - v00) * cx[k].w;
+      const float bot = v10 + (v11 - v10) * cx[k].w;
+      v[k] = top + (bot - top) * cy[k].w;
+    }
+    float* d = dst + c * P;
+    if (vec && n == FWD_PX) {
+      *reinterpret_cast<float2*>(d) = make_float2(v[0], v[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < FWD_PX; ++k)
+        if (k < n) d[k] = v[k];
+    }
   }
 }
 
@@ -117,14 +212,21 @@ unsigned int blocks_for(long long n) {
 
 }  // namespace
 
-extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, int C, int H,
-                        int W, int Ho, int Wo, void* stream) {
-  const long long n = static_cast<long long>(B) * Ho * Wo;
-  if (n > 0) {
-    warp_fwd_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        img, grid, out, B, C, H, W, Ho, Wo);
+extern "C" int warp_fwd_staged(const float* img, const float* grid, float* out, int B, int C,
+                               int H, int W, int Ho, int Wo, int stage_floats, void* stream) {
+  if (B > 0 && Ho > 0 && Wo > 0) {
+    const bool vec = Wo % 2 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
+    const dim3 blocks((Wo + FWD_TW - 1) / FWD_TW, (Ho + FWD_TY - 1) / FWD_TY, B);
+    warp_fwd_kernel<<<blocks, dim3(FWD_TX, FWD_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+        img, grid, out, C, H, W, Ho, Wo, std::min(std::max(stage_floats, 0), kStageFloats), vec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, int C, int H,
+                        int W, int Ho, int Wo, void* stream) {
+  return warp_fwd_staged(img, grid, out, B, C, H, W, Ho, Wo, kStageFloats, stream);
 }
 
 extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,

@@ -50,7 +50,7 @@ def build_all() -> list:
     when every library was current)."""
     todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
     if not todo:
-        return {}
+        return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}

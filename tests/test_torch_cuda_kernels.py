@@ -6,14 +6,20 @@ has no CPU mode). On the card:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Shapes are chosen for the edges of the kernels' tiling: widths that are not
-multiples of the 32-pixel tile, heights not multiples of 8, the smallest
-images (2 pixels, where every pixel is a reflected border), one channel.
+multiples of the tiles (32 for K3, 64 for K1 and K4) or of K1's 2-pixel and
+K4's 16-byte vectors, heights not multiples of 8 or of K4's 16-row tile and
+4-row strips, the smallest images (2 and 3 pixels, where every pixel is a
+reflected border), one and four channels. K1 is run on grids that put its
+tiles in each of its branches (source window staged in shared memory, or
+gathered from device memory).
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dynamo_depth_torch.ops.kernels import launch_counts, photometric, reset_launch_counts, warp
+from dynamo_depth_torch.training.synthetic import ego_motion_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +35,10 @@ def _scale_tol(ref, rel):
     return rel * max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 9, 13, 7, 11), (1, 3, 2, 2, 5, 3), (2, 1, 37, 70, 37, 70), (1, 4, 8, 32, 16, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 9, 13, 7, 11), (1, 3, 2, 2, 5, 3), (2, 1, 37, 70, 37, 70), (1, 4, 8, 32, 16, 64),
+    (1, 3, 3, 3, 3, 3), (2, 4, 17, 67, 17, 67), (1, 1, 20, 130, 9, 65), (1, 3, 24, 64, 24, 128),
+])
 def test_warp_kernels_match_plain(dev, shape):
     B, C, H, W, Ho, Wo = shape
     g = torch.Generator(device=dev).manual_seed(0)
@@ -55,7 +64,52 @@ def test_warp_kernels_match_plain(dev, shape):
     torch.testing.assert_close(d_grid2, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 10, 12), (1, 3, 4, 4), (1, 3, 2, 2), (2, 1, 37, 70), (1, 3, 192, 640)])
+def _grid(kind, B, H, W, Ho, Wo, dev, g):
+    """A sample grid over an (H, W) image: ``near_identity`` (each output
+    pixel samples within ~1.5 px of the same place, rescaled to the source),
+    ``uniform`` (anywhere in [-1.1, 1.1]) or ``ego`` (the main path's)."""
+    if kind == "ego":
+        return ego_motion_grid(B, Ho, Wo, seed=3).to(dev)
+    if kind == "uniform":
+        return torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.2 - 1.1
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, Ho, device=dev), torch.linspace(-1, 1, Wo, device=dev), indexing="ij")
+    base = torch.stack([xs, ys], -1).expand(B, Ho, Wo, 2)
+    jitter = (torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2 - 1) * 1.5
+    return base + jitter * 2 / torch.tensor([W - 1, H - 1], device=dev)
+
+
+@pytest.mark.parametrize("kind,shape,staged", [
+    ("near_identity", (2, 3, 48, 80, 48, 80), 1.0),
+    ("near_identity", (1, 4, 37, 70, 37, 70), 1.0),
+    ("uniform", (2, 3, 48, 80, 48, 80), 0.0),
+    ("uniform", (1, 4, 37, 70, 37, 70), 0.0),
+    ("ego", (3, 3, 192, 640, 192, 640), None),
+])
+def test_warp_fwd_branches_match_plain_and_grid_sample(dev, kind, shape, staged):
+    B, C, H, W, Ho, Wo = shape
+    g = torch.Generator(device=dev).manual_seed(2)
+    img = torch.rand(B, C, H, W, device=dev, generator=g)
+    grid = _grid(kind, B, H, W, Ho, Wo, dev, g)
+    share = warp.staged_tile_share(grid, H, W, C)
+    if staged is not None:
+        assert share == staged  # every tile in the branch under test
+    else:
+        assert share > 0.9  # the main path's grid stages nearly every tile
+
+    out = warp.warp_fwd(img, grid)
+    out_direct = warp.warp_fwd_direct(img, grid)
+    out_p = warp.grid_sample_plain(img, grid)
+    out_l = F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    # float32 lerps with and without fused multiply-adds.
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, out_l, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out_direct, out_p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 3, 10, 12), (1, 3, 4, 4), (1, 3, 2, 2), (2, 1, 37, 70), (1, 3, 192, 640),
+    (1, 3, 3, 3), (1, 4, 2, 2), (2, 4, 17, 67), (1, 1, 18, 66), (1, 3, 33, 130), (1, 3, 16, 64),
+])
 def test_photometric_kernels_match_plain(dev, shape):
     g = torch.Generator(device=dev).manual_seed(1)
     pred = torch.rand(*shape, device=dev, generator=g, requires_grad=True)
@@ -72,6 +126,21 @@ def test_photometric_kernels_match_plain(dev, shape):
     torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(d_pred, d_pred_p, rtol=0, atol=_scale_tol(d_pred_p, 1e-4))
     torch.testing.assert_close(d_target, d_target_p, rtol=0, atol=_scale_tol(d_target_p, 1e-4))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 2, 2), (2, 3, 9, 70), (1, 1, 3, 3)])
+def test_photometric_bwd_at_the_clip_edge(dev, shape):
+    # Equal windows give num == den, so s = 0 exactly: the edge of the clip,
+    # where the plain version passes the gradient on.
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand(*shape, device=dev, generator=g)
+    flat = torch.full(shape, 0.5, device=dev)
+    cot = torch.randn(shape[0], 1, shape[2], shape[3], device=dev, generator=g)
+    for pred in (x, flat):
+        d_pred, _ = photometric.photometric_bwd(pred, pred.clone(), cot, 0.85, False)
+        pred_r = pred.clone().requires_grad_()
+        (d_pred_p,) = torch.autograd.grad(photometric.reprojection_loss_plain(pred_r, pred, 0.85), pred_r, cot)
+        torch.testing.assert_close(d_pred, d_pred_p, rtol=0, atol=_scale_tol(d_pred_p, 1e-4))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
