@@ -10,15 +10,15 @@ Phases (any failure exits non-zero, nothing is caught):
    process per source, into ``build/kernels``);
 3. hold every kernel against its plain PyTorch version (and the warp against
    ``F.grid_sample``) at the main path's shapes: batch 3, 3 channels, 192x640;
-   the warp on two grids, a uniform random one (every tile gathers from
-   device memory) and the main path's (identity plus ego-motion from a smooth
-   5-80 m depth, ``training/synthetic.py::ego_motion_grid``, where K1 stages
-   each tile's source window in shared memory);
+   the warp on two grids, a uniform random one (every tap in its own
+   cache sector) and the main path's (identity plus ego-motion from a smooth
+   5-80 m depth, ``training/synthetic.py::ego_motion_grid``);
 4. time every kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (device time from the
    profiler, and CUDA events around one call) beside its bound: the bytes it
    must move over the card's memory rate, or its operations over the card's
-   float32 rate; the warp on both grids, K1 also with its staging off;
+   float32 rate; the warp on both grids, with the grid's largest displacement
+   and the share of 64x8 tiles whose source window fits 24 KB;
 5. one ``fine_tune`` step on the card against the same step on the CPU (the
    plain versions) from the same weights at 64x96;
 6. the main path: the LiteMono ``fine_tune`` step at 192x640, batch 3,
@@ -117,6 +117,7 @@ def main():
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.ops import ground_plane
     from dynamo_depth_torch.ops.kernels import build, launch_counts, photometric, reset_launch_counts, warp
+    from dynamo_depth_torch.bench.kernel_ab import tile_window_share
     from dynamo_depth_torch.ops.geometry import pixel_grid
     from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
     from dynamo_depth_torch.training.trainer import Trainer
@@ -162,7 +163,6 @@ def main():
     errors["warp_fwd"] = errors["warp_bwd"] = 0.0
     for label, gr in (("uniform grid", grid), ("main-path grid", ego)):
         out_k = warp.warp_fwd(img, gr)
-        out_kd = warp.warp_fwd_direct(img, gr)
         img_r, grid_r = img.clone().requires_grad_(), gr.clone().requires_grad_()
         out_p = warp.grid_sample_plain(img_r, grid_r)
         d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_r, grid_r), g_warp)
@@ -172,11 +172,10 @@ def main():
         d_img_k, d_grid_k = warp.warp_bwd(img, gr, g_warp, True)
         _, d_grid_k2 = warp.warp_bwd(img, gr, g_warp, False)
         torch.cuda.synchronize()
-        print(f"  {label}: {100 * warp.staged_tile_share(gr, H, W, C):.2f}% of K1's tiles staged")
         # Values: one lerp, float32 with or without fused multiply-adds.
-        err = max(max_err(out_k, out_p), max_err(out_kd, out_p))
+        err = max_err(out_k, out_p)
         errors["warp_fwd"] = max(errors["warp_fwd"], err)
-        check(f"warp_fwd vs plain ({label}; staged and direct)", err, 1e-5)
+        check(f"warp_fwd vs plain ({label})", err, 1e-5)
         check(f"warp_fwd vs F.grid_sample ({label})", max_err(out_k, out_l), 1e-5)
         # d_grid is a 3-term sum scaled by (W-1)/2 = 319.5: 1e-5 of its scale.
         err = max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p))
@@ -214,8 +213,8 @@ def main():
     px = (ego + 1.0) * 0.5 * torch.tensor([W - 1.0, H - 1.0], device=dev)
     shift = (px - pixel_grid(H, W, dev)[:, :2].reshape(1, H, W, 2)).norm(dim=-1)
     print(f"main-path grid: displacement max {float(shift.max()):.2f} px, median {float(shift.median()):.2f} px; "
-          f"K1 tiles staged: {100 * warp.staged_tile_share(ego, H, W, C):.2f}% "
-          f"(uniform grid: {100 * warp.staged_tile_share(grid, H, W, C):.2f}%)")
+          f"64x8 tiles whose source window fits 24 KB: {100 * tile_window_share(ego, H, W, C):.2f}% "
+          f"(uniform grid: {100 * tile_window_share(grid, H, W, C):.2f}%)")
     pred_req = pred.clone().requires_grad_()
     out_plain_ph = photometric.reprojection_loss_plain(pred_req, target, 0.85)
     # bytes and float32 operations per output pixel at C = 3 (each input
@@ -237,7 +236,6 @@ def main():
                 lambda: warp.grid_sample_plain(img, gr),
                 lambda: F.grid_sample(img, gr, mode="bilinear", padding_mode="border", align_corners=True),
             ),
-            "warp_fwd_direct": (lambda: warp.warp_fwd_direct(img, gr), None, None),
             "warp_bwd": (
                 lambda: warp.warp_bwd(img, gr, g_warp, False),
                 lambda: torch.autograd.grad(out_plain, g_req, g_warp, retain_graph=True),
@@ -271,7 +269,7 @@ def main():
     bounds = {}
     print(f"timing (ms; device time from the profiler, wall = events around one call) at B={B} C={C} {H}x{W} on {smi}:")
     for (k, label), (ms, plain_ms, lib_ms) in timings.items():
-        nbytes, nops = work[k.replace("_direct", "")][0] * P, work[k.replace("_direct", "")][1] * P
+        nbytes, nops = work[k][0] * P, work[k][1] * P
         t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
         bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
         w = wall[(k, label)]
@@ -406,9 +404,6 @@ def main():
             ms_m, plain_m, lib_m = timings[(k, "main")]
             entry.update({"ms_main_grid": ms_m, "plain_ms_main_grid": plain_m, "library_ms_main_grid": lib_m,
                           "wall_ms_main_grid": wall[(k, "main")][0]})
-        if k == "warp_fwd":
-            entry.update({"direct_ms": timings[("warp_fwd_direct", "uniform")][0],
-                          "direct_ms_main_grid": timings[("warp_fwd_direct", "main")][0]})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "card": smi}))

@@ -2,6 +2,7 @@
 
     git archive <commit> | tar -x -C build/other      # any git-ignored directory
     python3 -m dynamo_depth_torch.bench.kernel_ab --other build/other
+    python3 -m dynamo_depth_torch.bench.kernel_ab --k4-phases
 
 Both checkouts' ``csrc/*.cu`` export the same C functions (``warp_fwd``,
 ``warp_bwd``, ``photometric_fwd``, ``photometric_bwd``). The other checkout's
@@ -14,6 +15,16 @@ times each in turns (other, this, this, other): device time per launch from
 ``torch.profiler`` over ``--calls`` launches, and CUDA events around the
 same back-to-back launches. Prints the card, one line per kernel and grid,
 and one JSON object last.
+
+With ``--k4-phases`` it times this checkout's K4 (``photometric_bwd``) with
+its phases switched off in turn (``photometric_bwd_phases`` in
+``csrc/photometric.cu``): all, no staging, no coefficients, no column pass,
+and the stores alone; the differences are what each phase costs.
+
+:func:`tile_window_share` describes a sample grid's locality: the share of
+64x8 output tiles whose source window (the bounding box of the tiles' tap
+origins, grown by one row and column, times C) fits 24 KB, the budget of the
+shared-memory staging that an earlier K1 used (``git show edd54d2``).
 """
 
 from __future__ import annotations
@@ -43,6 +54,27 @@ SIGNATURES = {
         "photometric_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
 }
+
+
+def tile_window_share(grid, H, W, C, tile=(8, 64), budget_floats=6144):
+    """Share of ``tile`` (rows, columns) output tiles of ``grid`` ``(B, Ho,
+    Wo, 2)``, over an ``(H, W)`` image of ``C`` channels, whose source window
+    holds at most ``budget_floats`` floats."""
+    B, Ho, Wo = grid.shape[:3]
+    th, tw = tile
+    g = grid.detach().float()
+    x0 = torch.floor(((g[..., 0] + 1) * 0.5 * (W - 1)).clamp(0, W - 1)).clamp(0, W - 2)
+    y0 = torch.floor(((g[..., 1] + 1) * 0.5 * (H - 1)).clamp(0, H - 1)).clamp(0, H - 2)
+    ph, pw = -Ho % th, -Wo % tw
+
+    def tiles(v, fill):
+        v = torch.nn.functional.pad(v, (0, pw, 0, ph), value=fill)
+        return v.reshape(B, (Ho + ph) // th, th, (Wo + pw) // tw, tw).transpose(2, 3).flatten(3)
+
+    big = float(max(H, W))
+    bw = tiles(x0, -big).amax(-1) - tiles(x0, big).amin(-1) + 2
+    bh = tiles(y0, -big).amax(-1) - tiles(y0, big).amin(-1) + 2
+    return float((C * bw * bh <= budget_floats).float().mean())
 
 
 def _other_build(root: Path):
@@ -95,7 +127,9 @@ def _time(fn, name, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    # Per launch the profiler saw: it can drop events of a long window.
     mine = [e for e in prof.key_averages() if f"{name}_kernel" in e.key]
+    seen = sum(e.count for e in mine)
     us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0) for e in mine)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
@@ -103,14 +137,34 @@ def _time(fn, name, calls):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return (us / calls / 1e3 if us > 0 else None), a.elapsed_time(b) / calls
+    return (us / seen / 1e3 if us > 0 else None), a.elapsed_time(b) / calls
+
+
+def _k4_phases(t, smi, calls):
+    lib = build.load("photometric", {"photometric_bwd_phases": SIGNATURES["photometric"]["photometric_bwd"][:-1] + [_I, _P]})
+    s = torch.cuda.current_stream().cuda_stream
+    d = torch.empty(B, C, H, W, device="cuda")
+    masks = {"all": 7, "no staging": 6, "no coefficients": 5, "no column pass": 3, "stores only": 0}
+    rows = {}
+    print(f"K4 device ms per launch with phases off (profiler), B={B} C={C} {H}x{W}, on {smi}:")
+    for label, mask in masks.items():
+        def fn(mask=mask):
+            build.check(lib.photometric_bwd_phases(t["pred"].data_ptr(), t["target"].data_ptr(), t["g_photo"].data_ptr(),
+                                                   d.data_ptr(), None, B, C, H, W, 0.85, mask, s), "photometric_bwd")
+        rows[label] = _time(fn, "photometric_bwd", calls)[0]
+        print(f"  {label} (mask {mask}): {rows[label]:.5f}")
+    print(json.dumps({"card": smi, "k4_phases_ms": rows}))
+    return 0
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
+    ap.add_argument("--other", type=Path, help="root of the other checkout")
+    ap.add_argument("--k4-phases", action="store_true", help="time K4 with its phases switched off in turn")
     ap.add_argument("--calls", type=int, default=200, help="launches per timing")
     args = ap.parse_args(argv)
+    if (args.other is None) == (not args.k4_phases):
+        ap.error("give --other or --k4-phases")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -128,6 +182,8 @@ def main(argv=None):
         "g_photo": torch.randn(B, 1, H, W, device="cuda", generator=gen),
         "ego": ego_motion_grid(B, H, W, seed=0).cuda(),
     }
+    if args.k4_phases:
+        return _k4_phases(t, smi, args.calls)
     sets = {"other": _launchers(_other_build(args.other.resolve()), t), "this": _launchers(build, t)}
 
     diffs = {}

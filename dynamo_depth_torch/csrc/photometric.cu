@@ -52,6 +52,10 @@
 //   d_target when asked) is written once per pixel and channel, coalesced.
 // - Barriers: one after the staging, then two per channel (coefficients
 //   ready; coefficients consumed before the next channel overwrites them).
+// - `photometric_bwd_phases` runs K4 with some of its phases switched off
+//   (bit 0 staging, bit 1 coefficients, bit 2 column pass of the stencil;
+//   what a skipped phase would produce is left undefined), so that the time
+//   of each phase can be measured; `photometric_bwd` runs all of them.
 //
 // Layouts: pred, target (B, C, H, W); out and its gradient (B, 1, H, W);
 // float32, contiguous; H, W >= 2; H * W < 2^31. K4 takes C <= 18 (its staged
@@ -189,7 +193,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     photometric_bwd_kernel(const float* __restrict__ pred, const float* __restrict__ target,
                            const float* __restrict__ g_out, float* __restrict__ d_pred,
                            float* __restrict__ d_target, int C, int H, int W, float ssim_weight,
-                           bool vec) {
+                           bool vec, unsigned phases) {
   // [2C][IN_ROWS][IN_LD] inputs (pred channels, then target channels),
   // [CO_ROWS][CO_LD] output gradient, [4][CO_ROWS][CO_LD] coefficients
   // (dL/d mu_x / 9, dL/d mu_y / 9, dL/d E[x^2] / 9, dL/d E[xy] / 9).
@@ -204,7 +208,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const bool want_target = d_target != nullptr;
 
   // ---- stage every channel of pred and target, and the output gradient ----
-  for (int k = tid; k < 2 * C * IN_ROWS * IN_CHUNKS; k += kBwdThreads) {
+  for (int k = tid; (phases & 1) && k < 2 * C * IN_ROWS * IN_CHUNKS; k += kBwdThreads) {
     const int chunk = k % IN_CHUNKS, row = (k / IN_CHUNKS) % IN_ROWS;
     const int plane = k / (IN_CHUNKS * IN_ROWS);
     const float* src = plane < C ? pred + (static_cast<size_t>(b) * C + plane) * HW
@@ -251,7 +255,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     const float* sy = s_in + (C + c) * IN_ROWS * IN_LD;
 
     // ---- coefficient maps over the tile grown by 1 ------------------------
-    if (tid < CO_THREADS) {
+    if ((phases & 2) && tid < CO_THREADS) {
       const int q = tid % CO_COLS, r0 = (tid / CO_COLS) * CO_STRIP;
       const int qx = x0 - 1 + q;
       float up2[5], up1[5];
@@ -308,9 +312,9 @@ __global__ void __launch_bounds__(kBwdThreads)
     __syncthreads();
 
     // ---- transposed stencil: column pass with wc, row pass with wr --------
-    float hP[STRIP + 2], hQ[STRIP + 2], hR[STRIP + 2], hS[STRIP + 2];
+    float hP[STRIP + 2] = {}, hQ[STRIP + 2] = {}, hR[STRIP + 2] = {}, hS[STRIP + 2] = {};
 #pragma unroll
-    for (int k = 0; k < STRIP + 2; ++k) {
+    for (int k = 0; (phases & 4) && k < STRIP + 2; ++k) {
       const float* co = s_co + (ly0 + k) * CO_LD + lx;
       hP[k] = wc[0] * co[0] + wc[1] * co[1] + wc[2] * co[2];
       hQ[k] = want_target ? wc[0] * co[CO_MAP] + wc[1] * co[CO_MAP + 1] + wc[2] * co[CO_MAP + 2] : 0.f;
@@ -358,9 +362,9 @@ extern "C" int photometric_fwd(const float* pred, const float* target, float* ou
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int photometric_bwd(const float* pred, const float* target, const float* g_out,
-                               float* d_pred, float* d_target, int B, int C, int H, int W,
-                               float ssim_weight, void* stream) {
+extern "C" int photometric_bwd_phases(const float* pred, const float* target, const float* g_out,
+                                      float* d_pred, float* d_target, int B, int C, int H, int W,
+                                      float ssim_weight, int phases, void* stream) {
   if (B > 0 && C > 0 && H > 0 && W > 0) {
     // Opt in once per device to the card's largest shared memory per block.
     constexpr int kMaxDevices = 64;
@@ -380,7 +384,15 @@ extern "C" int photometric_bwd(const float* pred, const float* target, const flo
                      reinterpret_cast<uintptr_t>(target) % 16 == 0;
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, B);
     photometric_bwd_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        pred, target, g_out, d_pred, d_target, C, H, W, ssim_weight, vec);
+        pred, target, g_out, d_pred, d_target, C, H, W, ssim_weight, vec,
+        static_cast<unsigned>(phases));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int photometric_bwd(const float* pred, const float* target, const float* g_out,
+                               float* d_pred, float* d_target, int B, int C, int H, int W,
+                               float ssim_weight, void* stream) {
+  return photometric_bwd_phases(pred, target, g_out, d_pred, d_target, B, C, H, W, ssim_weight, 7,
+                                stream);
 }

@@ -11,22 +11,22 @@
 // output); the backward likewise (grid and gradient in, d_grid out).
 //
 // K1, designed for Hopper:
-// - Tile: a block of 32x8 threads owns a 64x8 output tile, batch on
+// - Tile: a block of 32x4 threads owns a 64x4 output tile, batch on
 //   blockIdx.z; offsets within a plane are 32-bit, with no 64-bit division.
 // - Per-thread work: 2 neighbouring output pixels of one row. Their grid
 //   points come in one 16-byte load, and each channel's two outputs leave as
 //   one 8-byte store (when Wo is even; scalar accesses otherwise and at the
-//   ragged right edge).
-// - Staging: the block reduces the bounding box of its tap origins (warp
-//   `__reduce_min/max_sync`, then shared memory). Where that box grown by one
-//   row and column, times C, fits kStageFloats (24 KB), the block copies the
-//   source window into shared memory with coalesced row loads and takes its
-//   4 * C taps there. The main path's grid (identity plus ego-motion and a
-//   few to tens of pixels of flow) lands in this branch for nearly every
-//   tile. Otherwise (a grid that scatters the tile's samples, such as a
-//   uniform random one) the block gathers its taps from device memory.
-//   Both branches are the kernel; `warp_fwd_staged` sets the budget, 0
-//   forcing the direct gathers, so the two can be timed on one grid.
+//   ragged right edge). A warp reads 512 contiguous bytes of grid and writes
+//   256 contiguous bytes per channel.
+// - Taps: gathered straight from device memory through the read-only path.
+//   On the main path's grid (identity plus ego-motion and flow of a few to
+//   tens of pixels) a warp's 64 pixels read two rows of ~65 neighbouring
+//   floats per channel, so the gathers hit L1 and L2 and the kernel runs
+//   near its bytes bound. Staging each tile's source window in shared
+//   memory was tried and measured slower on that grid (PERF.md, PR 2): the
+//   block-wide bounding-box reduction and barrier cost more than the L1
+//   hits they replace. On a uniform random grid every tap of every pixel
+//   lands in its own 32-byte sector and the kernel is bound by that traffic.
 //
 // K2: one thread per output pixel reads its grid point once, does the
 // unnormalize / border clamp / floor / clip in registers, reads the four
@@ -43,8 +43,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
-#include <climits>
 #include <cstdint>
 
 namespace {
@@ -52,10 +50,9 @@ namespace {
 constexpr int kThreads = 256;  // K2: one output pixel per thread
 
 // K1 tiling.
-constexpr int FWD_TX = 32, FWD_TY = 8;  // threads per block
+constexpr int FWD_TX = 32, FWD_TY = 4;  // threads per block
 constexpr int FWD_PX = 2;               // output pixels per thread, along a row
 constexpr int FWD_TW = FWD_TX * FWD_PX; // output tile width (64); height FWD_TY
-constexpr int kStageFloats = 6144;      // shared-memory window budget, floats
 
 struct Coord {
   int i0;      // tap origin, in [0, size - 2]
@@ -77,16 +74,13 @@ __device__ __forceinline__ Coord unnormalize(float g, int size) {
 
 __global__ void __launch_bounds__(FWD_TX * FWD_TY)
     warp_fwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
-                    float* __restrict__ out, int C, int H, int W, int Ho, int Wo,
-                    int stage_floats, bool vec) {
-  __shared__ float win[kStageFloats];
-  __shared__ int box[4][FWD_TY];  // per warp: min x0, max x0, min y0, max y0
+                    float* __restrict__ out, int C, int H, int W, int Ho, int Wo, bool vec) {
   const int b = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int ox = blockIdx.x * FWD_TW + tx * FWD_PX;
-  const int oy = blockIdx.y * FWD_TY + ty;
-  const int n = oy < Ho ? min(FWD_PX, Wo - ox) : 0;  // this thread's pixels (may be <= 0)
-  const int at = oy * Wo + ox;                        // offset within an output plane
+  const int ox = blockIdx.x * FWD_TW + threadIdx.x * FWD_PX;
+  const int oy = blockIdx.y * FWD_TY + threadIdx.y;
+  if (oy >= Ho || ox >= Wo) return;
+  const int n = min(FWD_PX, Wo - ox);  // this thread's pixels
+  const int at = oy * Wo + ox;         // offset within an output plane
   const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
 
   float g[2 * FWD_PX];
@@ -98,64 +92,27 @@ __global__ void __launch_bounds__(FWD_TX * FWD_TY)
 #pragma unroll
     for (int k = 0; k < 2 * FWD_PX; ++k) g[k] = k < 2 * n ? gp[k] : 0.f;
   }
-  Coord cx[FWD_PX], cy[FWD_PX];
-  int xmin = INT_MAX, xmax = INT_MIN, ymin = INT_MAX, ymax = INT_MIN;
+  int off[FWD_PX];  // tap origin within an image plane
+  float wx[FWD_PX], wy[FWD_PX];
 #pragma unroll
   for (int k = 0; k < FWD_PX; ++k) {
-    cx[k] = unnormalize(g[2 * k], W);
-    cy[k] = unnormalize(g[2 * k + 1], H);
-    if (k < n) {
-      xmin = min(xmin, cx[k].i0); xmax = max(xmax, cx[k].i0);
-      ymin = min(ymin, cy[k].i0); ymax = max(ymax, cy[k].i0);
-    }
+    const Coord cx = unnormalize(g[2 * k], W), cy = unnormalize(g[2 * k + 1], H);
+    off[k] = cy.i0 * W + cx.i0;
+    wx[k] = cx.w;
+    wy[k] = cy.w;
   }
-
-  // Bounding box of the block's tap origins.
-  xmin = __reduce_min_sync(0xffffffffu, xmin);
-  xmax = __reduce_max_sync(0xffffffffu, xmax);
-  ymin = __reduce_min_sync(0xffffffffu, ymin);
-  ymax = __reduce_max_sync(0xffffffffu, ymax);
-  if (tx == 0) {
-    box[0][ty] = xmin; box[1][ty] = xmax; box[2][ty] = ymin; box[3][ty] = ymax;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < FWD_TY; ++w) {
-    xmin = min(xmin, box[0][w]); xmax = max(xmax, box[1][w]);
-    ymin = min(ymin, box[2][w]); ymax = max(ymax, box[3][w]);
-  }
-  const int bw = xmax - xmin + 2, bh = ymax - ymin + 2;
-  const bool staged = xmax >= xmin && static_cast<long long>(C) * bw * bh <= stage_floats;
 
   const float* src = img + b * C * HW;
-  if (staged) {  // uniform over the block
-    for (int r = ty; r < C * bh; r += FWD_TY) {
-      const int c = r / bh, yy = r - c * bh;
-      const float* row = src + c * HW + (ymin + yy) * W + xmin;
-      float* dst = win + r * bw;
-      for (int col = tx; col < bw; col += FWD_TX) dst[col] = __ldg(row + col);
-    }
-    __syncthreads();
-  }
-
   float* dst = out + b * C * P + at;
   for (int c = 0; c < C; ++c) {
     float v[FWD_PX];
 #pragma unroll
     for (int k = 0; k < FWD_PX; ++k) {
-      float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-      if (k < n) {
-        if (staged) {
-          const float* s = win + (c * bh + cy[k].i0 - ymin) * bw + cx[k].i0 - xmin;
-          v00 = s[0]; v01 = s[1]; v10 = s[bw]; v11 = s[bw + 1];
-        } else {
-          const float* s = src + c * HW + cy[k].i0 * W + cx[k].i0;
-          v00 = __ldg(s); v01 = __ldg(s + 1); v10 = __ldg(s + W); v11 = __ldg(s + W + 1);
-        }
-      }
-      const float top = v00 + (v01 - v00) * cx[k].w;
-      const float bot = v10 + (v11 - v10) * cx[k].w;
-      v[k] = top + (bot - top) * cy[k].w;
+      const float* s = src + c * HW + off[k];
+      const float v00 = __ldg(s), v01 = __ldg(s + 1), v10 = __ldg(s + W), v11 = __ldg(s + W + 1);
+      const float top = v00 + (v01 - v00) * wx[k];
+      const float bot = v10 + (v11 - v10) * wx[k];
+      v[k] = top + (bot - top) * wy[k];
     }
     float* d = dst + c * P;
     if (vec && n == FWD_PX) {
@@ -212,21 +169,16 @@ unsigned int blocks_for(long long n) {
 
 }  // namespace
 
-extern "C" int warp_fwd_staged(const float* img, const float* grid, float* out, int B, int C,
-                               int H, int W, int Ho, int Wo, int stage_floats, void* stream) {
+extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, int C, int H,
+                        int W, int Ho, int Wo, void* stream) {
   if (B > 0 && Ho > 0 && Wo > 0) {
     const bool vec = Wo % 2 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % 8 == 0;
     const dim3 blocks((Wo + FWD_TW - 1) / FWD_TW, (Ho + FWD_TY - 1) / FWD_TY, B);
     warp_fwd_kernel<<<blocks, dim3(FWD_TX, FWD_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-        img, grid, out, C, H, W, Ho, Wo, std::min(std::max(stage_floats, 0), kStageFloats), vec);
+        img, grid, out, C, H, W, Ho, Wo, vec);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, int C, int H,
-                        int W, int Ho, int Wo, void* stream) {
-  return warp_fwd_staged(img, grid, out, B, C, H, W, Ho, Wo, kStageFloats, stream);
 }
 
 extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,

@@ -22,11 +22,6 @@ from dynamo_depth_torch.ops.kernels import build
 
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
 
-# K1's output tile and its shared-memory window budget in floats
-# (``FWD_TY``, ``FWD_TW`` and ``kStageFloats`` in ``csrc/warp.cu``).
-TILE_H, TILE_W = 8, 64
-STAGE_FLOATS = 6144
-
 
 def _coords(grid, H, W):
     gx = ((grid[..., 0] + 1.0) * 0.5 * (W - 1)).clamp(0.0, W - 1)
@@ -64,25 +59,6 @@ def _check_shapes(image, grid):
         raise ValueError(f"grid_sample needs H, W >= 2; got {tuple(image.shape)}")
 
 
-def staged_tile_share(grid, H, W, C):
-    """Share of K1's output tiles whose source window (the bounding box of the
-    tile's tap origins grown by one row and column, times ``C``) fits the
-    staging budget: those tiles take their taps from shared memory, the others
-    gather from device memory. ``grid`` is ``(B, Ho, Wo, 2)``."""
-    B, Ho, Wo = grid.shape[:3]
-    x0, y0, _, _ = _coords(grid.detach().float(), H, W)
-    ph, pw = -Ho % TILE_H, -Wo % TILE_W
-
-    def tiles(v, fill):
-        v = torch.nn.functional.pad(v, (0, pw, 0, ph), value=fill)
-        return v.reshape(B, (Ho + ph) // TILE_H, TILE_H, (Wo + pw) // TILE_W, TILE_W).transpose(2, 3).flatten(3)
-
-    big = float(max(H, W))
-    bw = tiles(x0, -big).amax(-1) - tiles(x0, big).amin(-1) + 2
-    bh = tiles(y0, -big).amax(-1) - tiles(y0, big).amin(-1) + 2
-    return float((C * bw * bh <= STAGE_FLOATS).float().mean())
-
-
 def _check_cuda(*tensors):
     for t in tensors:
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -94,7 +70,6 @@ def _check_cuda(*tensors):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "warp_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "warp_fwd_staged": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -103,30 +78,18 @@ def _lib():
     return build.load("warp", _SIGNATURES)
 
 
-def _launch_fwd(image, grid, stage_floats):
+def warp_fwd(image, grid):
+    """K1: launch the forward kernel. -> ``(B, C, Ho, Wo)``."""
     _check_shapes(image, grid)
     _check_cuda(image, grid)
     B, C, H, W = image.shape
     Ho, Wo = grid.shape[1], grid.shape[2]
     out = torch.empty((B, C, Ho, Wo), device=image.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(image.device).cuda_stream
-    err = _lib().warp_fwd_staged(image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, C, H, W, Ho, Wo, stage_floats, stream)
+    err = _lib().warp_fwd(image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, C, H, W, Ho, Wo, stream)
     build.check(err, "warp_fwd")
     LAUNCHES["warp_fwd"] += 1
     return out
-
-
-def warp_fwd(image, grid):
-    """K1: launch the forward kernel. -> ``(B, C, Ho, Wo)``. Each tile whose
-    source window fits :data:`STAGE_FLOATS` takes its taps from shared memory;
-    the others gather from device memory."""
-    return _launch_fwd(image, grid, STAGE_FLOATS)
-
-
-def warp_fwd_direct(image, grid):
-    """K1 with a staging budget of 0: every tile gathers its taps from device
-    memory (to time the two branches of K1 on one grid)."""
-    return _launch_fwd(image, grid, 0)
 
 
 def warp_bwd(image, grid, g_out, need_image_grad):

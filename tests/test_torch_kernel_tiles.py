@@ -1,10 +1,10 @@
 """What surrounds the redesigned kernels, on the CPU.
 
-K1 (``csrc/warp.cu``) stages a tile's source window in shared memory when it
-fits a budget; :func:`warp.staged_tile_share` predicts which tiles do, and
-its constants must be the kernel's. The main path's sample grid
-(``training/synthetic.py::ego_motion_grid``) decides which branch K1 takes,
-so the warp is held to the JAX package on that grid too. K4
+The main path's sample grid (``training/synthetic.py::ego_motion_grid``) is
+the traffic K1 and K2 are timed on, so the warp is held to the JAX package on
+that grid too; :func:`tile_window_share` (``bench/kernel_ab.py``) describes
+a grid's locality by the share of output tiles whose source window is small,
+and is checked against a loop over tiles. K4
 (``csrc/photometric.cu``) keeps the clip's edge s = 0 (equal pred and target
 windows), where the JAX package's ``jnp.clip`` passes half the gradient and
 PyTorch's ``clamp`` all of it; this moves nothing, since the SSIM gradient
@@ -13,39 +13,23 @@ packages do differ in the L1 term: ``jnp.abs`` has the subgradient 1 at 0,
 ``torch.abs`` (and the reference's PyTorch code, and K4) 0.
 """
 
-import re
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dynamo_depth_torch.bench.kernel_ab import tile_window_share
 from dynamo_depth_torch.ops import photometric as tp
 from dynamo_depth_torch.ops import warp as tw
 from dynamo_depth_torch.ops.geometry import pixel_grid
-from dynamo_depth_torch.ops.kernels import warp as kw
 from dynamo_depth_torch.training.synthetic import ego_motion_grid
 from dynamo_depth_torch.utils.layout import nchw_to_nhwc, nhwc_to_nchw
 from dynamo_depth_tpu.ops import photometric as jp
 from dynamo_depth_tpu.ops import warp as jw
 
-WARP_CU = Path(kw.__file__).resolve().parents[2] / "csrc" / "warp.cu"
-
-
-def test_k1_tiling_constants_match_the_kernel_source():
-    src = WARP_CU.read_text()
-
-    def const(name):
-        return int(re.search(rf"\b{name}\s*=\s*(\d+)\s*[;,]", src).group(1))
-
-    assert (kw.TILE_H, kw.TILE_W) == (const("FWD_TY"), const("FWD_TX") * const("FWD_PX"))
-    assert kw.STAGE_FLOATS == const("kStageFloats")
-
-
-def _share_by_loop(grid, H, W, C):
-    """The staged share, tile by tile, in numpy."""
+def _share_by_loop(grid, H, W, C, th=8, tw=64, budget=6144):
+    """The share of tiles with a small source window, tile by tile, in numpy."""
     B, Ho, Wo, _ = grid.shape
     gx = np.clip((grid[..., 0] + 1.0) * 0.5 * (W - 1), 0, W - 1)
     gy = np.clip((grid[..., 1] + 1.0) * 0.5 * (H - 1), 0, H - 1)
@@ -53,12 +37,12 @@ def _share_by_loop(grid, H, W, C):
     y0 = np.clip(np.floor(gy), 0, H - 2)
     fits = []
     for b in range(B):
-        for ty in range(0, Ho, kw.TILE_H):
-            for tx in range(0, Wo, kw.TILE_W):
-                xs = x0[b, ty:ty + kw.TILE_H, tx:tx + kw.TILE_W]
-                ys = y0[b, ty:ty + kw.TILE_H, tx:tx + kw.TILE_W]
+        for ty in range(0, Ho, th):
+            for tx in range(0, Wo, tw):
+                xs = x0[b, ty:ty + th, tx:tx + tw]
+                ys = y0[b, ty:ty + th, tx:tx + tw]
                 box = (xs.max() - xs.min() + 2) * (ys.max() - ys.min() + 2)
-                fits.append(C * box <= kw.STAGE_FLOATS)
+                fits.append(C * box <= budget)
     return float(np.mean(fits))
 
 
@@ -67,13 +51,13 @@ def _share_by_loop(grid, H, W, C):
     ((1, 4, 37, 70, 37, 70), 0.08),    # near-identity: every window fits
     ((2, 1, 90, 200, 17, 67), 0.6),    # ragged tiles on both axes
 ])
-def test_staged_tile_share_matches_a_loop_over_tiles(rng, shape, spread):
+def test_tile_window_share_matches_a_loop_over_tiles(rng, shape, spread):
     B, C, H, W, Ho, Wo = shape
     ys, xs = np.meshgrid(np.linspace(-1, 1, Ho), np.linspace(-1, 1, Wo), indexing="ij")
     base = np.stack([xs, ys], -1)[None]
     grid = (base * (1 - spread / 2.2) + (rng.rand(B, Ho, Wo, 2) * 2 - 1) * spread / 2).astype(np.float32)
     want = _share_by_loop(grid, H, W, C)
-    assert kw.staged_tile_share(torch.from_numpy(grid), H, W, C) == pytest.approx(want, abs=1e-7)
+    assert tile_window_share(torch.from_numpy(grid), H, W, C) == pytest.approx(want, abs=1e-7)
 
 
 def test_ego_motion_grid_is_the_main_paths_traffic():
@@ -85,7 +69,7 @@ def test_ego_motion_grid_is_the_main_paths_traffic():
     shift = (px - pixel_grid(H, W)[:, :2].reshape(1, H, W, 2)).norm(dim=-1)
     # A few to a few tens of pixels: ~1 m forward at 5-80 m, small yaw.
     assert 0.5 < float(shift.median()) < 20.0 and float(shift.max()) < 60.0
-    assert kw.staged_tile_share(grid, H, W, 3) > 0.9
+    assert tile_window_share(grid, H, W, 3) > 0.9
 
 
 def test_warp_on_the_main_path_grid_matches_jax(rng):
