@@ -11,21 +11,24 @@ Phases (any failure exits non-zero, nothing is caught):
 3. hold every kernel against its plain PyTorch version (and the warp against
    ``F.grid_sample``) at the main path's shapes: batch 3, 3 channels, 192x640;
    the warp on two grids, a uniform random one (every tap in its own
-   cache sector) and the main path's (identity plus ego-motion from a smooth
-   5-80 m depth, ``training/synthetic.py::ego_motion_grid``);
+   cache sector) and a stand-in for a trained model's ego-motion (identity
+   plus ego-motion from a smooth 5-80 m depth,
+   ``training/synthetic.py::ego_motion_grid``);
 4. time every kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (device time from the
    profiler, and CUDA events around one call) beside its bound: the bytes it
    must move over the card's memory rate, or its operations over the card's
-   float32 rate; the warp on both grids, with the grid's largest displacement
-   and the share of 64x8 tiles whose source window fits 24 KB;
+   float32 rate; the warp on both grids, with the ego-motion grid's
+   displacement;
 5. one ``fine_tune`` step on the card against the same step on the CPU (the
    plain versions) from the same weights at 64x96;
 6. the main path: the LiteMono ``fine_tune`` step at 192x640, batch 3,
    float32 (KITTI headline config, random weights from seed 0): 2 warm-up
    and 5 timed steps, finite losses, moving weights, and 6 launches per step
    of each of the four kernels; then one profiled step, with each kernel's
-   own device time inside it.
+   own device time inside it; then one more step whose six warp inputs are
+   captured, with each grid's displacement and the warp kernels timed alone
+   on them.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -40,7 +43,6 @@ import time
 import numpy as np
 
 B, C, H, W = 3, 3, 192, 640
-TIMED_RUNS = 30
 STEPS_WARMUP, STEPS_TIMED = 2, 5
 
 # Published H100 rates (NVIDIA data sheets): HBM bytes/s and float32 (non
@@ -53,45 +55,6 @@ def card_rates(name):
         if key and key in name:
             return rates
     return _RATES[""]
-
-
-def median_ms(fn, runs=TIMED_RUNS):
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms(fn, runs=TIMED_RUNS):
-    """Device time of one call of ``fn``: the sum of the durations of every
-    kernel it launches, from torch.profiler (CUPTI), averaged over ``runs``
-    calls after warm-up. None where the profiler saw no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages())
-    return total_us / runs / 1e3 if total_us > 0 else None
-
-
-def _self_device_us(event):
-    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
 
 def max_err(a, b):
@@ -114,10 +77,10 @@ def main():
 
     import torch.nn.functional as F
 
+    from dynamo_depth_torch.bench.timing import device_ms, median_ms, self_device_us
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.ops import ground_plane
     from dynamo_depth_torch.ops.kernels import build, launch_counts, photometric, reset_launch_counts, warp
-    from dynamo_depth_torch.bench.kernel_ab import tile_window_share
     from dynamo_depth_torch.ops.geometry import pixel_grid
     from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
     from dynamo_depth_torch.training.trainer import Trainer
@@ -161,7 +124,7 @@ def main():
         return rel * max(1.0, float(ref.abs().max()))
 
     errors["warp_fwd"] = errors["warp_bwd"] = 0.0
-    for label, gr in (("uniform grid", grid), ("main-path grid", ego)):
+    for label, gr in (("uniform grid", grid), ("ego-motion grid", ego)):
         out_k = warp.warp_fwd(img, gr)
         img_r, grid_r = img.clone().requires_grad_(), gr.clone().requires_grad_()
         out_p = warp.grid_sample_plain(img_r, grid_r)
@@ -200,21 +163,17 @@ def main():
     errors["photometric_bwd"] = max(max_err(d_pred_k, d_pred_p), max_err(d_pred_k2, d_pred_p))
     check("photometric_bwd d_pred vs plain", errors["photometric_bwd"], scale_tol(d_pred_p, 1e-4))
     check("photometric_bwd d_target vs plain", max_err(d_target_k, d_target_p), scale_tol(d_target_p, 1e-4))
-    # The clip's edge: equal windows give num == den and s = 0 exactly, where
-    # the gradient still flows.
-    d_eq_k, _ = photometric.photometric_bwd(pred, pred, g_photo, 0.85, False)
-    pred_e = pred.clone().requires_grad_()
-    (d_eq_p,) = torch.autograd.grad(photometric.reprojection_loss_plain(pred_e, pred, 0.85), pred_e, g_photo)
-    torch.cuda.synchronize()
-    check("photometric_bwd d_pred vs plain (target = pred)", max_err(d_eq_k, d_eq_p), scale_tol(d_eq_p, 1e-4))
 
     # ---- 4. timing ---------------------------------------------------------
     P = B * H * W
-    px = (ego + 1.0) * 0.5 * torch.tensor([W - 1.0, H - 1.0], device=dev)
-    shift = (px - pixel_grid(H, W, dev)[:, :2].reshape(1, H, W, 2)).norm(dim=-1)
-    print(f"main-path grid: displacement max {float(shift.max()):.2f} px, median {float(shift.median()):.2f} px; "
-          f"64x8 tiles whose source window fits 24 KB: {100 * tile_window_share(ego, H, W, C):.2f}% "
-          f"(uniform grid: {100 * tile_window_share(grid, H, W, C):.2f}%)")
+
+    def displacement(gr):
+        """How far each output pixel samples from itself, in source pixels."""
+        px = (gr + 1.0) * 0.5 * torch.tensor([W - 1.0, H - 1.0], device=dev)
+        shift = (px - pixel_grid(H, W, dev)[:, :2].reshape(1, H, W, 2)).norm(dim=-1)
+        return f"displacement max {float(shift.max()):.2f} px, median {float(shift.median()):.2f} px"
+
+    print(f"ego-motion grid: {displacement(ego)}")
     pred_req = pred.clone().requires_grad_()
     out_plain_ph = photometric.reprojection_loss_plain(pred_req, target, 0.85)
     # bytes and float32 operations per output pixel at C = 3 (each input
@@ -244,7 +203,7 @@ def main():
         }
 
     calls = {}  # (kernel, grid): kernel, plain version, library call (None: no single call)
-    for label, gr in (("uniform", grid), ("main", ego)):
+    for label, gr in (("uniform", grid), ("ego", ego)):
         calls.update({(k, label): fns for k, fns in warp_calls(gr).items()})
     calls[("photometric_fwd", None)] = (
         lambda: photometric.photometric_fwd(pred, target, 0.85),
@@ -362,14 +321,14 @@ def main():
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     ]
-    busy_ms = sum(_self_device_us(e) for e in events) / 1e3
-    events.sort(key=_self_device_us, reverse=True)
+    busy_ms = sum(self_device_us(e) for e in events) / 1e3
+    events.sort(key=self_device_us, reverse=True)
     print(f"profiled step: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.0f}% of wall; {100 * busy_ms / ms:.0f}% of the unprofiled step), "
           f"{sum(e.count for e in events)} device ops; top by device time:")
     for e in events[:15]:
-        print(f"  {_self_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
-    ours = sum(_self_device_us(e) for e in events if any(n in e.key for n in ("warp_", "photometric_")))
+        print(f"  {self_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    ours = sum(self_device_us(e) for e in events if any(n in e.key for n in ("warp_", "photometric_")))
     print(f"  the four port kernels: {ours / 1e3:.3f} ms ({100 * ours / 1e3 / max(busy_ms, 1e-9):.2f}% of device time)")
     in_step = {}  # device ms of one launch inside the step, by kernel
     for k in ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd"):
@@ -377,10 +336,37 @@ def main():
         n = sum(e.count for e in mine)
         if n != 6:
             raise SystemExit(f"{k}: {n} launches in the profiled step, expected 6")
-        in_step[k] = sum(_self_device_us(e) for e in mine) / 1e3 / n
-        bench = timings[(k, "main" if k.startswith("warp") else None)][0]
+        in_step[k] = sum(self_device_us(e) for e in mine) / 1e3 / n
+        bench = timings[(k, "ego" if k.startswith("warp") else None)][0]
         print(f"  {k}: {in_step[k]:.4f} ms per launch in the step (x{n}), {bench:.4f} ms alone"
-              f"{' on the main-path grid' if k.startswith('warp') else ''}")
+              f"{' on the ego-motion grid' if k.startswith('warp') else ''}")
+
+    # ---- the warp's inputs in the step (one extra step, captured) ----------
+    captured = []
+    launch_fwd = warp.warp_fwd
+
+    def capture(image, gr):
+        captured.append((image.detach().clone(), gr.detach().clone()))
+        return launch_fwd(image, gr)
+
+    warp.warp_fwd = capture
+    try:
+        trainer.train_step(batch, gen, steps + 1)
+    finally:
+        warp.warp_fwd = launch_fwd
+    if len(captured) != 6 or any(im.shape != img.shape or gr.shape != grid.shape for im, gr in captured):
+        raise SystemExit(f"captured {len(captured)} warp inputs of the step, expected 6 of {tuple(img.shape)}")
+    on_step = {"warp_fwd": [], "warp_bwd": []}  # device ms alone on each captured input
+    print(f"the step's warp inputs, kernels alone on each (device ms; in the step: "
+          f"warp_fwd {in_step['warp_fwd']:.4f}, warp_bwd {in_step['warp_bwd']:.4f} per launch):")
+    for i, (im, gr) in enumerate(captured):
+        if not bool(torch.isfinite(gr).all()):
+            raise SystemExit(f"step grid {i} is not finite")
+        on_step["warp_fwd"].append(device_ms(lambda: warp.warp_fwd(im, gr)))
+        on_step["warp_bwd"].append(device_ms(lambda: warp.warp_bwd(im, gr, g_warp, False)))
+        print(f"  grid {i}: {displacement(gr)}; warp_fwd {on_step['warp_fwd'][i]:.4f}, "
+              f"warp_bwd {on_step['warp_bwd'][i]:.4f}")
+    del captured
 
     # ---- kernels line, result line -----------------------------------------
     sources = {
@@ -401,9 +387,10 @@ def main():
             "in_step_ms": in_step[k],
         }
         if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
-            ms_m, plain_m, lib_m = timings[(k, "main")]
-            entry.update({"ms_main_grid": ms_m, "plain_ms_main_grid": plain_m, "library_ms_main_grid": lib_m,
-                          "wall_ms_main_grid": wall[(k, "main")][0]})
+            ms_e, plain_e, lib_e = timings[(k, "ego")]
+            entry.update({"ms_ego_grid": ms_e, "plain_ms_ego_grid": plain_e, "library_ms_ego_grid": lib_e,
+                          "wall_ms_ego_grid": wall[(k, "ego")][0],
+                          "ms_step_grids": float(np.mean(on_step[k]))})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "card": smi}))

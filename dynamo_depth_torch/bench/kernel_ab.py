@@ -2,35 +2,24 @@
 
     git archive <commit> | tar -x -C build/other      # any git-ignored directory
     python3 -m dynamo_depth_torch.bench.kernel_ab --other build/other
-    python3 -m dynamo_depth_torch.bench.kernel_ab --k4-phases
 
 Both checkouts' ``csrc/*.cu`` export the same C functions (``warp_fwd``,
-``warp_bwd``, ``photometric_fwd``, ``photometric_bwd``). The other checkout's
-own ``ops/kernels/build.py`` builds its sources into its own
-``build/kernels``. The script feeds both sets of kernels the same tensors
-at the main path's shapes (B=3, C=3, 192x640), the warp on a uniform random
-grid in [-1.1, 1.1] and on the main path's grid
-(``training/synthetic.py::ego_motion_grid``), checks that the two agree, and
-times each in turns (other, this, this, other): device time per launch from
-``torch.profiler`` over ``--calls`` launches, and CUDA events around the
-same back-to-back launches. Prints the card, one line per kernel and grid,
-and one JSON object last.
-
-With ``--k4-phases`` it times this checkout's K4 (``photometric_bwd``) with
-its phases switched off in turn (``photometric_bwd_phases`` in
-``csrc/photometric.cu``): all, no staging, no coefficients, no column pass,
-and the stores alone; the differences are what each phase costs.
-
-:func:`tile_window_share` describes a sample grid's locality: the share of
-64x8 output tiles whose source window (the bounding box of the tiles' tap
-origins, grown by one row and column, times C) fits 24 KB, the budget of the
-shared-memory staging that an earlier K1 used (``git show edd54d2``).
+``warp_bwd``, ``photometric_fwd``, ``photometric_bwd``), declared once in
+the wrappers (``ops/kernels/warp.py`` and ``ops/kernels/photometric.py``).
+The other checkout's own ``ops/kernels/build.py`` builds its sources into
+its own ``build/kernels``. The script feeds both sets of kernels the same
+tensors at the main path's shapes (B=3, C=3, 192x640), the warp on a
+uniform random grid in [-1.1, 1.1] and on a stand-in for a trained model's
+ego-motion (``training/synthetic.py::ego_motion_grid``), checks that the
+two agree, and times each in turns (other, this, this, other) with
+``bench/timing.py``: device time per call from ``torch.profiler``, and the
+median of CUDA events around one call. Prints the card, one line per
+kernel and grid, and one JSON object last.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import subprocess
@@ -39,42 +28,13 @@ from pathlib import Path
 
 import torch
 
+from dynamo_depth_torch.bench.timing import TIMED_RUNS, device_ms, median_ms
 from dynamo_depth_torch.ops.kernels import build
+from dynamo_depth_torch.ops.kernels import photometric as photometric_wrapper
+from dynamo_depth_torch.ops.kernels import warp as warp_wrapper
 from dynamo_depth_torch.training.synthetic import ego_motion_grid
 
 B, C, H, W = 3, 3, 192, 640
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {
-    "warp": {
-        "warp_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    },
-    "photometric": {
-        "photometric_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-        "photometric_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    },
-}
-
-
-def tile_window_share(grid, H, W, C, tile=(8, 64), budget_floats=6144):
-    """Share of ``tile`` (rows, columns) output tiles of ``grid`` ``(B, Ho,
-    Wo, 2)``, over an ``(H, W)`` image of ``C`` channels, whose source window
-    holds at most ``budget_floats`` floats."""
-    B, Ho, Wo = grid.shape[:3]
-    th, tw = tile
-    g = grid.detach().float()
-    x0 = torch.floor(((g[..., 0] + 1) * 0.5 * (W - 1)).clamp(0, W - 1)).clamp(0, W - 2)
-    y0 = torch.floor(((g[..., 1] + 1) * 0.5 * (H - 1)).clamp(0, H - 1)).clamp(0, H - 2)
-    ph, pw = -Ho % th, -Wo % tw
-
-    def tiles(v, fill):
-        v = torch.nn.functional.pad(v, (0, pw, 0, ph), value=fill)
-        return v.reshape(B, (Ho + ph) // th, th, (Wo + pw) // tw, tw).transpose(2, 3).flatten(3)
-
-    big = float(max(H, W))
-    bw = tiles(x0, -big).amax(-1) - tiles(x0, big).amin(-1) + 2
-    bh = tiles(y0, -big).amax(-1) - tiles(y0, big).amin(-1) + 2
-    return float((C * bw * bh <= budget_floats).float().mean())
 
 
 def _other_build(root: Path):
@@ -88,11 +48,11 @@ def _other_build(root: Path):
 
 def _launchers(builder, t):
     """{(kernel, grid): (launch, output)} for one checkout's libraries."""
-    warp = builder.load("warp", SIGNATURES["warp"])
-    photo = builder.load("photometric", SIGNATURES["photometric"])
+    warp = builder.load("warp", warp_wrapper._SIGNATURES)
+    photo = builder.load("photometric", photometric_wrapper._SIGNATURES)
     s = torch.cuda.current_stream().cuda_stream
     out = {}
-    for label, grid in (("uniform", t["grid"]), ("main", t["ego"])):
+    for label, grid in (("uniform", t["grid"]), ("ego", t["ego"])):
         o = torch.empty(B, C, H, W, device="cuda")
         d = torch.empty_like(grid)
         out[("warp_fwd", label)] = (
@@ -116,55 +76,11 @@ def _launchers(builder, t):
     return out
 
 
-def _time(fn, name, calls):
-    """(device ms per launch from the profiler, event ms per launch)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # Per launch the profiler saw: it can drop events of a long window.
-    mine = [e for e in prof.key_averages() if f"{name}_kernel" in e.key]
-    seen = sum(e.count for e in mine)
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0) for e in mine)
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(calls):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return (us / seen / 1e3 if us > 0 else None), a.elapsed_time(b) / calls
-
-
-def _k4_phases(t, smi, calls):
-    lib = build.load("photometric", {"photometric_bwd_phases": SIGNATURES["photometric"]["photometric_bwd"][:-1] + [_I, _P]})
-    s = torch.cuda.current_stream().cuda_stream
-    d = torch.empty(B, C, H, W, device="cuda")
-    masks = {"all": 7, "no staging": 6, "no coefficients": 5, "no column pass": 3, "stores only": 0}
-    rows = {}
-    print(f"K4 device ms per launch with phases off (profiler), B={B} C={C} {H}x{W}, on {smi}:")
-    for label, mask in masks.items():
-        def fn(mask=mask):
-            build.check(lib.photometric_bwd_phases(t["pred"].data_ptr(), t["target"].data_ptr(), t["g_photo"].data_ptr(),
-                                                   d.data_ptr(), None, B, C, H, W, 0.85, mask, s), "photometric_bwd")
-        rows[label] = _time(fn, "photometric_bwd", calls)[0]
-        print(f"  {label} (mask {mask}): {rows[label]:.5f}")
-    print(json.dumps({"card": smi, "k4_phases_ms": rows}))
-    return 0
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", type=Path, help="root of the other checkout")
-    ap.add_argument("--k4-phases", action="store_true", help="time K4 with its phases switched off in turn")
-    ap.add_argument("--calls", type=int, default=200, help="launches per timing")
+    ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
+    ap.add_argument("--calls", type=int, default=TIMED_RUNS, help="calls per timing")
     args = ap.parse_args(argv)
-    if (args.other is None) == (not args.k4_phases):
-        ap.error("give --other or --k4-phases")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -182,8 +98,6 @@ def main(argv=None):
         "g_photo": torch.randn(B, 1, H, W, device="cuda", generator=gen),
         "ego": ego_motion_grid(B, H, W, seed=0).cuda(),
     }
-    if args.k4_phases:
-        return _k4_phases(t, smi, args.calls)
     sets = {"other": _launchers(_other_build(args.other.resolve()), t), "this": _launchers(build, t)}
 
     diffs = {}
@@ -196,10 +110,11 @@ def main(argv=None):
     times = {key: {"other": [], "this": []} for key in sets["this"]}
     for side in ("other", "this", "this", "other"):
         for key, (fn, _) in sets[side].items():
-            times[key][side].append(_time(fn, key[0], args.calls))
+            times[key][side].append((device_ms(fn, args.calls), median_ms(fn, args.calls)))
 
     rows = []
-    print(f"device ms per launch (profiler; events in brackets), B={B} C={C} {H}x{W}, turns other/this/this/other, on {smi}:")
+    print(f"device ms per call (profiler; events around one call in brackets), B={B} C={C} {H}x{W}, "
+          f"turns other/this/this/other, on {smi}:")
     for key, by in times.items():
         row = {"kernel": key[0], "grid": key[1], "max_abs_diff": diffs[key]}
         for side in ("other", "this"):

@@ -39,11 +39,10 @@
 //   moments (8 input rows read for 6 windows, instead of 9 taps per window).
 //   Each entry turns them into four coefficient maps dL/d(mu_x, mu_y,
 //   E[x^2] = E[y^2] weight, E[xy]), zero where the clip saturates, with one
-//   correctly rounded reciprocal of `den`; the quotient num/den that the clip
-//   tests is num * (1/den) refined by one fused multiply-add step
-//   (Markstein), which equals the correctly rounded num/den away from
-//   overflow and underflow, so the clip keeps the plain version's exact edges
-//   (s = 0 where pred and target windows are equal).
+//   reciprocal of `den`; the clip tests s = (1 - num * (1/den)) / 2. Its
+//   edges cannot be observed: s = 0 needs equal windows, where the SSIM
+//   gradient vanishes, and s = 1 needs SSIM = -1, which C1, C2 > 0 keep out
+//   of reach. So s may differ from the plain version's num/den by an ulp.
 // - Transposed stencil: the weight of a neighbour is wr[i] * wc[j], the
 //   number of its window taps that reflect onto the pixel per axis (rows 1
 //   and H-2, columns 1 and W-2 receive the reflected windows twice). Each of
@@ -52,10 +51,6 @@
 //   d_target when asked) is written once per pixel and channel, coalesced.
 // - Barriers: one after the staging, then two per channel (coefficients
 //   ready; coefficients consumed before the next channel overwrites them).
-// - `photometric_bwd_phases` runs K4 with some of its phases switched off
-//   (bit 0 staging, bit 1 coefficients, bit 2 column pass of the stencil;
-//   what a skipped phase would produce is left undefined), so that the time
-//   of each phase can be measured; `photometric_bwd` runs all of them.
 //
 // Layouts: pred, target (B, C, H, W); out and its gradient (B, 1, H, W);
 // float32, contiguous; H, W >= 2; H * W < 2^31. K4 takes C <= 18 (its staged
@@ -193,7 +188,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     photometric_bwd_kernel(const float* __restrict__ pred, const float* __restrict__ target,
                            const float* __restrict__ g_out, float* __restrict__ d_pred,
                            float* __restrict__ d_target, int C, int H, int W, float ssim_weight,
-                           bool vec, unsigned phases) {
+                           bool vec) {
   // [2C][IN_ROWS][IN_LD] inputs (pred channels, then target channels),
   // [CO_ROWS][CO_LD] output gradient, [4][CO_ROWS][CO_LD] coefficients
   // (dL/d mu_x / 9, dL/d mu_y / 9, dL/d E[x^2] / 9, dL/d E[xy] / 9).
@@ -208,7 +203,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const bool want_target = d_target != nullptr;
 
   // ---- stage every channel of pred and target, and the output gradient ----
-  for (int k = tid; (phases & 1) && k < 2 * C * IN_ROWS * IN_CHUNKS; k += kBwdThreads) {
+  for (int k = tid; k < 2 * C * IN_ROWS * IN_CHUNKS; k += kBwdThreads) {
     const int chunk = k % IN_CHUNKS, row = (k / IN_CHUNKS) % IN_ROWS;
     const int plane = k / (IN_CHUNKS * IN_ROWS);
     const float* src = plane < C ? pred + (static_cast<size_t>(b) * C + plane) * HW
@@ -255,7 +250,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     const float* sy = s_in + (C + c) * IN_ROWS * IN_LD;
 
     // ---- coefficient maps over the tile grown by 1 ------------------------
-    if ((phases & 2) && tid < CO_THREADS) {
+    if (tid < CO_THREADS) {
       const int q = tid % CO_COLS, r0 = (tid / CO_COLS) * CO_STRIP;
       const int qx = x0 - 1 + q;
       float up2[5], up1[5];
@@ -276,16 +271,12 @@ __global__ void __launch_bounds__(kBwdThreads)
             const float sigx = exx - mx * mx;
             const float sigy = eyy - my * my;
             const float sxy = exy - mx * my;
-            // Rounded op by op (no contraction) so that equal pred and
-            // target windows give num == den exactly, as in the plain version.
-            const float A1 = __fadd_rn(__fmul_rn(2.f * mx, my), kC1);
-            const float B1 = __fadd_rn(2.f * sxy, kC2);
-            const float A2 = __fadd_rn(__fadd_rn(__fmul_rn(mx, mx), __fmul_rn(my, my)), kC1);
-            const float B2 = __fadd_rn(__fadd_rn(sigx, sigy), kC2);
-            const float num = __fmul_rn(A1, B1), den = __fmul_rn(A2, B2);
-            const float inv = __frcp_rn(den);
-            const float q0 = __fmul_rn(num, inv);
-            const float ratio = __fmaf_rn(__fmaf_rn(-q0, den, num), inv, q0);  // = num / den
+            const float A1 = 2.f * mx * my + kC1;
+            const float B1 = 2.f * sxy + kC2;
+            const float A2 = mx * mx + my * my + kC1;
+            const float B2 = sigx + sigy + kC2;
+            const float inv = 1.f / (A2 * B2);
+            const float ratio = A1 * B1 * inv;  // SSIM = num / den
             const float s = (1.f - ratio) * 0.5f;
             // Zero gradient where the clip to [0, 1] saturates.
             const float a = (s >= 0.f && s <= 1.f) ? s_g[r * CO_LD + q] * ssim_scale : 0.f;
@@ -314,7 +305,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     // ---- transposed stencil: column pass with wc, row pass with wr --------
     float hP[STRIP + 2] = {}, hQ[STRIP + 2] = {}, hR[STRIP + 2] = {}, hS[STRIP + 2] = {};
 #pragma unroll
-    for (int k = 0; (phases & 4) && k < STRIP + 2; ++k) {
+    for (int k = 0; k < STRIP + 2; ++k) {
       const float* co = s_co + (ly0 + k) * CO_LD + lx;
       hP[k] = wc[0] * co[0] + wc[1] * co[1] + wc[2] * co[2];
       hQ[k] = want_target ? wc[0] * co[CO_MAP] + wc[1] * co[CO_MAP + 1] + wc[2] * co[CO_MAP + 2] : 0.f;
@@ -362,9 +353,9 @@ extern "C" int photometric_fwd(const float* pred, const float* target, float* ou
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int photometric_bwd_phases(const float* pred, const float* target, const float* g_out,
-                                      float* d_pred, float* d_target, int B, int C, int H, int W,
-                                      float ssim_weight, int phases, void* stream) {
+extern "C" int photometric_bwd(const float* pred, const float* target, const float* g_out,
+                               float* d_pred, float* d_target, int B, int C, int H, int W,
+                               float ssim_weight, void* stream) {
   if (B > 0 && C > 0 && H > 0 && W > 0) {
     // Opt in once per device to the card's largest shared memory per block.
     constexpr int kMaxDevices = 64;
@@ -384,15 +375,7 @@ extern "C" int photometric_bwd_phases(const float* pred, const float* target, co
                      reinterpret_cast<uintptr_t>(target) % 16 == 0;
     const dim3 grid((W + BX - 1) / BX, (H + BY - 1) / BY, B);
     photometric_bwd_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        pred, target, g_out, d_pred, d_target, C, H, W, ssim_weight, vec,
-        static_cast<unsigned>(phases));
+        pred, target, g_out, d_pred, d_target, C, H, W, ssim_weight, vec);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int photometric_bwd(const float* pred, const float* target, const float* g_out,
-                               float* d_pred, float* d_target, int B, int C, int H, int W,
-                               float ssim_weight, void* stream) {
-  return photometric_bwd_phases(pred, target, g_out, d_pred, d_target, B, C, H, W, ssim_weight, 7,
-                                stream);
 }

@@ -19,11 +19,11 @@
 //   ragged right edge). A warp reads 512 contiguous bytes of grid and writes
 //   256 contiguous bytes per channel.
 // - Taps: gathered straight from device memory through the read-only path.
-//   On the main path's grid (identity plus ego-motion and flow of a few to
-//   tens of pixels) a warp's 64 pixels read two rows of ~65 neighbouring
-//   floats per channel, so the gathers hit L1 and L2 and the kernel runs
-//   near its bytes bound. Staging each tile's source window in shared
-//   memory was tried and measured slower on that grid (PERF.md, PR 2): the
+//   On a grid of identity plus ego-motion and flow of a few to tens of
+//   pixels a warp's 64 pixels read two rows of ~65 neighbouring floats per
+//   channel, so the gathers hit L1 and L2 and the kernel runs near its
+//   bytes bound. Staging each tile's source window in shared memory was
+//   tried and measured slower on such a grid (PERF.md): the
 //   block-wide bounding-box reduction and barrier cost more than the L1
 //   hits they replace. On a uniform random grid every tap of every pixel
 //   lands in its own 32-byte sector and the kernel is bound by that traffic.

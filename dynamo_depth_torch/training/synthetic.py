@@ -37,10 +37,11 @@ def synthetic_batch(cfg, batch_size, height, width, seed=0):
 
 
 def ego_motion_grid(batch_size, height, width, seed=0):
-    """A sample grid like the main path's warp sees: the pixels of a smooth
-    random depth map of 5 to 80 m, backprojected with the KITTI intrinsics,
-    moved by a camera that drives about 1 m forward with a small yaw, and
-    projected again (``backproject`` and ``project``, as view synthesis does).
+    """A sample grid that stands in for a trained model's ego-motion: the
+    pixels of a smooth random depth map of 5 to 80 m, backprojected with the
+    KITTI intrinsics, moved by a camera that drives about 1 m forward with a
+    small yaw, and projected again (``backproject`` and ``project``, as view
+    synthesis does).
     -> ``(B, H, W, 2)`` float32 on the CPU, in [-1, 1] where the sample lands
     inside the source image."""
     rng = np.random.RandomState(seed)

@@ -10,9 +10,9 @@ multiples of the tiles (32 for K3, 64 for K1 and K4) or of K1's 2-pixel and
 K4's 16-byte vectors, heights not multiples of 8 or of K4's 16-row tile and
 4-row strips, the smallest images (2 and 3 pixels, where every pixel is a
 reflected border), one and four channels. K1 is also run on grids at both
-ends of locality: near the identity (neighbouring pixels share taps, as on
-the main path), the main path's own, and uniform over the image (every tap
-in its own cache sector).
+ends of locality: near the identity (neighbouring pixels share taps), the
+ego-motion stand-in ``training/synthetic.py::ego_motion_grid``, and uniform
+over the image (every tap in its own cache sector).
 """
 
 import pytest
@@ -68,7 +68,7 @@ def test_warp_kernels_match_plain(dev, shape):
 def _grid(kind, B, H, W, Ho, Wo, dev, g):
     """A sample grid over an (H, W) image: ``near_identity`` (each output
     pixel samples within ~1.5 px of the same place, rescaled to the source),
-    ``uniform`` (anywhere in [-1.1, 1.1]) or ``ego`` (the main path's)."""
+    ``uniform`` (anywhere in [-1.1, 1.1]) or ``ego`` (``ego_motion_grid``)."""
     if kind == "ego":
         return ego_motion_grid(B, Ho, Wo, seed=3).to(dev)
     if kind == "uniform":
@@ -120,21 +120,6 @@ def test_photometric_kernels_match_plain(dev, shape):
     torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(d_pred, d_pred_p, rtol=0, atol=_scale_tol(d_pred_p, 1e-4))
     torch.testing.assert_close(d_target, d_target_p, rtol=0, atol=_scale_tol(d_target_p, 1e-4))
-
-
-@pytest.mark.parametrize("shape", [(1, 3, 2, 2), (2, 3, 9, 70), (1, 1, 3, 3)])
-def test_photometric_bwd_at_the_clip_edge(dev, shape):
-    # Equal windows give num == den, so s = 0 exactly: the edge of the clip,
-    # where the plain version passes the gradient on.
-    g = torch.Generator(device=dev).manual_seed(4)
-    x = torch.rand(*shape, device=dev, generator=g)
-    flat = torch.full(shape, 0.5, device=dev)
-    cot = torch.randn(shape[0], 1, shape[2], shape[3], device=dev, generator=g)
-    for pred in (x, flat):
-        d_pred, _ = photometric.photometric_bwd(pred, pred.clone(), cot, 0.85, False)
-        pred_r = pred.clone().requires_grad_()
-        (d_pred_p,) = torch.autograd.grad(photometric.reprojection_loss_plain(pred_r, pred, 0.85), pred_r, cot)
-        torch.testing.assert_close(d_pred, d_pred_p, rtol=0, atol=_scale_tol(d_pred_p, 1e-4))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
