@@ -13,7 +13,10 @@ Phases (any failure exits non-zero, nothing is caught):
    the warp on two grids, a uniform random one (every tap in its own
    cache sector) and a stand-in for a trained model's ego-motion (identity
    plus ego-motion from a smooth 5-80 m depth,
-   ``training/synthetic.py::ego_motion_grid``);
+   ``training/synthetic.py::ego_motion_grid``); and at exact ties, where the
+   kernels take the JAX package's subgradients as the plain versions do: K4
+   where pred equals target on a textured image, K2 on a grid whose entries
+   beyond the border are clipped to exactly -1 or 1;
 4. time every kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (device time from the
    profiler, and CUDA events around one call) beside its bound: the bytes it
@@ -27,7 +30,8 @@ Phases (any failure exits non-zero, nothing is caught):
    and 5 timed steps, finite losses, moving weights, and 6 launches per step
    of each of the four kernels; then one profiled step, with each kernel's
    own device time inside it; then one more step whose six warp inputs are
-   captured, with each grid's displacement and the warp kernels timed alone
+   captured, with each grid's displacement and the warp kernels and
+   ``F.grid_sample``'s forward and backward (``grid_sampler_2d``) timed alone
    on them.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
@@ -163,6 +167,31 @@ def main():
     errors["photometric_bwd"] = max(max_err(d_pred_k, d_pred_p), max_err(d_pred_k2, d_pred_p))
     check("photometric_bwd d_pred vs plain", errors["photometric_bwd"], scale_tol(d_pred_p, 1e-4))
     check("photometric_bwd d_target vs plain", max_err(d_target_k, d_target_p), scale_tol(d_target_p, 1e-4))
+
+    # Exact ties. K4 where pred equals target: jnp.abs's subgradient 1 at 0
+    # gives the L1 term -(1 - w) / C * g in d_pred, where the SSIM term
+    # vanishes. K2 where the grid lies exactly on the border: jnp.clip passes
+    # half the coordinate gradient there.
+    pred_r, target_r = pred.clone().requires_grad_(), pred.clone().requires_grad_()
+    out_p = photometric.reprojection_loss_plain(pred_r, target_r, 0.85)
+    d_pred_p, d_target_p = torch.autograd.grad(out_p, (pred_r, target_r), g_photo)
+    d_pred_k, d_target_k = photometric.photometric_bwd(pred, pred, g_photo, 0.85, True)
+    torch.cuda.synchronize()
+    err = max(max_err(d_pred_k, d_pred_p), max_err(d_target_k, d_target_p))
+    errors["photometric_bwd"] = max(errors["photometric_bwd"], err)
+    check(f"photometric_bwd where pred == target (|d_pred| up to {float(d_pred_p.abs().max()):.3f})",
+          err, scale_tol(d_pred_p, 1e-4))
+    on_border = grid.clamp(-1.0, 1.0)
+    img_r, grid_r = img.clone().requires_grad_(), on_border.clone().requires_grad_()
+    out_p = warp.grid_sample_plain(img_r, grid_r)
+    d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_r, grid_r), g_warp)
+    d_img_k, d_grid_k = warp.warp_bwd(img, on_border, g_warp, True)
+    torch.cuda.synchronize()
+    err = max_err(d_grid_k, d_grid_p)
+    errors["warp_bwd"] = max(errors["warp_bwd"], err)
+    ties = int((on_border.abs() == 1.0).sum())
+    check(f"warp_bwd d_grid on a grid with {ties} entries of exactly -1 or 1", err, scale_tol(d_grid_p))
+    check("warp_bwd d_image on that grid", max_err(d_img_k, d_img_p), scale_tol(d_img_p))
 
     # ---- 4. timing ---------------------------------------------------------
     P = B * H * W
@@ -356,17 +385,30 @@ def main():
         warp.warp_fwd = launch_fwd
     if len(captured) != 6 or any(im.shape != img.shape or gr.shape != grid.shape for im, gr in captured):
         raise SystemExit(f"captured {len(captured)} warp inputs of the step, expected 6 of {tuple(img.shape)}")
-    on_step = {"warp_fwd": [], "warp_bwd": []}  # device ms alone on each captured input
-    print(f"the step's warp inputs, kernels alone on each (device ms; in the step: "
+    # device ms alone on each captured input: the kernels, and the library's
+    # forward and backward (grid_sampler_2d, d_grid only, as in the step)
+    on_step = {"warp_fwd": [], "warp_bwd": []}
+    lib_step = {"warp_fwd": [], "warp_bwd": []}
+    print(f"the step's warp inputs, kernels and F.grid_sample alone on each (device ms; in the step: "
           f"warp_fwd {in_step['warp_fwd']:.4f}, warp_bwd {in_step['warp_bwd']:.4f} per launch):")
     for i, (im, gr) in enumerate(captured):
         if not bool(torch.isfinite(gr).all()):
             raise SystemExit(f"step grid {i} is not finite")
+        g_req = gr.clone().requires_grad_()
+        out_lib = F.grid_sample(im, g_req, mode="bilinear", padding_mode="border", align_corners=True)
         on_step["warp_fwd"].append(device_ms(lambda: warp.warp_fwd(im, gr)))
         on_step["warp_bwd"].append(device_ms(lambda: warp.warp_bwd(im, gr, g_warp, False)))
-        print(f"  grid {i}: {displacement(gr)}; warp_fwd {on_step['warp_fwd'][i]:.4f}, "
-              f"warp_bwd {on_step['warp_bwd'][i]:.4f}")
-    del captured
+        lib_step["warp_fwd"].append(device_ms(
+            lambda: F.grid_sample(im, gr, mode="bilinear", padding_mode="border", align_corners=True)))
+        lib_step["warp_bwd"].append(device_ms(lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True)))
+        print(f"  grid {i}: {displacement(gr)}; warp_fwd {on_step['warp_fwd'][i]:.4f} "
+              f"(library {lib_step['warp_fwd'][i]:.4f}), warp_bwd {on_step['warp_bwd'][i]:.4f} "
+              f"(library {lib_step['warp_bwd'][i]:.4f})")
+    for k in on_step:
+        ours, lib = float(np.mean(on_step[k])), float(np.mean(lib_step[k]))
+        print(f"  {k} on the step's grids: mean {ours:.4f} ms, library {lib:.4f} ms "
+              f"({'kernel faster' if ours < lib else 'library faster'})")
+    del captured, out_lib
 
     # ---- kernels line, result line -----------------------------------------
     sources = {
@@ -390,7 +432,8 @@ def main():
             ms_e, plain_e, lib_e = timings[(k, "ego")]
             entry.update({"ms_ego_grid": ms_e, "plain_ms_ego_grid": plain_e, "library_ms_ego_grid": lib_e,
                           "wall_ms_ego_grid": wall[(k, "ego")][0],
-                          "ms_step_grids": float(np.mean(on_step[k]))})
+                          "ms_step_grids": float(np.mean(on_step[k])),
+                          "library_ms_step_grids": float(np.mean(lib_step[k]))})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "card": smi}))

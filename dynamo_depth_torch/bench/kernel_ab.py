@@ -10,8 +10,10 @@ The other checkout's own ``ops/kernels/build.py`` builds its sources into
 its own ``build/kernels``. The script feeds both sets of kernels the same
 tensors at the main path's shapes (B=3, C=3, 192x640), the warp on a
 uniform random grid in [-1.1, 1.1] and on a stand-in for a trained model's
-ego-motion (``training/synthetic.py::ego_motion_grid``), checks that the
-two agree, and times each in turns (other, this, this, other) with
+ego-motion (``training/synthetic.py::ego_motion_grid``), and the backwards
+also at exact ties (K2 on the uniform grid clipped to [-1, 1], K4 where
+pred equals target), reports how far the two disagree, and times each in
+turns (other, this, this, other) with
 ``bench/timing.py``: device time per call from ``torch.profiler``, and the
 median of CUDA events around one call. Prints the card, one line per
 kernel and grid, and one JSON object last.
@@ -47,18 +49,19 @@ def _other_build(root: Path):
 
 
 def _launchers(builder, t):
-    """{(kernel, grid): (launch, output)} for one checkout's libraries."""
+    """{(kernel, inputs): (launch, output)} for one checkout's libraries."""
     warp = builder.load("warp", warp_wrapper._SIGNATURES)
     photo = builder.load("photometric", photometric_wrapper._SIGNATURES)
     s = torch.cuda.current_stream().cuda_stream
     out = {}
-    for label, grid in (("uniform", t["grid"]), ("ego", t["ego"])):
+    for label, grid in (("uniform grid", t["grid"]), ("ego grid", t["ego"]), ("on-border grid", t["on_border"])):
         o = torch.empty(B, C, H, W, device="cuda")
         d = torch.empty_like(grid)
-        out[("warp_fwd", label)] = (
-            lambda o=o, grid=grid: build.check(warp.warp_fwd(t["img"].data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
-            o,
-        )
+        if label != "on-border grid":
+            out[("warp_fwd", label)] = (
+                lambda o=o, grid=grid: build.check(warp.warp_fwd(t["img"].data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
+                o,
+            )
         out[("warp_bwd", label)] = (
             lambda d=d, grid=grid: build.check(warp.warp_bwd(t["img"].data_ptr(), grid.data_ptr(), t["g_warp"].data_ptr(), d.data_ptr(), None, B, C, H, W, H, W, s), "warp_bwd"),
             d,
@@ -68,11 +71,12 @@ def _launchers(builder, t):
         lambda: build.check(photo.photometric_fwd(t["pred"].data_ptr(), t["target"].data_ptr(), o.data_ptr(), B, C, H, W, 0.85, s), "photometric_fwd"),
         o,
     )
-    d = torch.empty(B, C, H, W, device="cuda")
-    out[("photometric_bwd", None)] = (
-        lambda: build.check(photo.photometric_bwd(t["pred"].data_ptr(), t["target"].data_ptr(), t["g_photo"].data_ptr(), d.data_ptr(), None, B, C, H, W, 0.85, s), "photometric_bwd"),
-        d,
-    )
+    for label, target in ((None, t["target"]), ("pred == target", t["pred"])):
+        d = torch.empty(B, C, H, W, device="cuda")
+        out[("photometric_bwd", label)] = (
+            lambda d=d, target=target: build.check(photo.photometric_bwd(t["pred"].data_ptr(), target.data_ptr(), t["g_photo"].data_ptr(), d.data_ptr(), None, B, C, H, W, 0.85, s), "photometric_bwd"),
+            d,
+        )
     return out
 
 
@@ -98,6 +102,7 @@ def main(argv=None):
         "g_photo": torch.randn(B, 1, H, W, device="cuda", generator=gen),
         "ego": ego_motion_grid(B, H, W, seed=0).cuda(),
     }
+    t["on_border"] = t["grid"].clamp(-1.0, 1.0)
     sets = {"other": _launchers(_other_build(args.other.resolve()), t), "this": _launchers(build, t)}
 
     diffs = {}
@@ -116,14 +121,14 @@ def main(argv=None):
     print(f"device ms per call (profiler; events around one call in brackets), B={B} C={C} {H}x{W}, "
           f"turns other/this/this/other, on {smi}:")
     for key, by in times.items():
-        row = {"kernel": key[0], "grid": key[1], "max_abs_diff": diffs[key]}
+        row = {"kernel": key[0], "inputs": key[1], "max_abs_diff": diffs[key]}
         for side in ("other", "this"):
             dev = [d for d, _ in by[side] if d is not None]
             row[f"{side}_ms"] = sum(dev) / len(dev) if dev else None
             row[f"{side}_ms_runs"] = dev
             row[f"{side}_event_ms"] = sum(e for _, e in by[side]) / len(by[side])
         rows.append(row)
-        where = "" if key[1] is None else f" [{key[1]} grid]"
+        where = "" if key[1] is None else f" [{key[1]}]"
 
         def fmt(v):
             return "n/a" if v is None else f"{v:.5f}"

@@ -14,9 +14,30 @@
 // flops per channel; the backward reads pred, target and the output gradient
 // and writes d_pred (40 B per pixel) against ~150 flops per channel.
 //
-// K3: a block owns a 32x8 output tile and, one channel at a time, stages the
-// tile plus its reflect-indexed halo in shared memory. The five 3x3 moments,
-// SSIM, the channel mean and the blend stay in registers.
+// K3, designed for Hopper: streaming column strips, no shared memory, no
+// barrier.
+// - Work: a warp owns a band of 30 output columns and a strip of FWD_ROWS = 8
+//   output rows of one image. Lane l holds one column; lanes 1-30 produce
+//   outputs, lanes 0 and 31 only load the band's left and right halo
+//   columns. Each lane's column is reflected once (only at the image's left
+//   and right edges does it move), the strip's 10 input rows once (only rows
+//   -1 and H move); the rest is 32-bit indexing within a plane. A warp's
+//   loads of one row are 32 consecutive floats.
+// - Loads in flight: all 10 input rows of one channel of pred and target are
+//   loaded into registers at once, and the next channel's rows are issued
+//   before the current channel's math: 20 loads per lane, two channels in
+//   flight together. The main path's 1,584 warps (127 registers a thread)
+//   fit in one wave, so other warps' loads cover each warp's math.
+// - Chosen over 2 or 4 columns per lane (vector loads) and 4- or 16-row
+//   strips by measurement: those need more registers a lane (up to 255,
+//   spilling at 4 columns) and give fewer warps, and ran slower.
+// - Window sums: the horizontal 3-sums of x, y, x^2, y^2, xy of one input row
+//   take the neighbour columns from the lanes beside (warp shuffles); those
+//   of the two rows above stay in registers, so each window costs one add per
+//   moment for the vertical sum instead of nine taps. 1/9 is a constant; one
+//   division per pixel and channel.
+// - Output: the channel mean and the blend accumulate in registers; one
+//   coalesced float per pixel is written after the last channel.
 //
 // K4, designed for Hopper:
 // - Tile: a 256-thread block owns a 64x16 output tile. Its inputs cover the
@@ -62,10 +83,15 @@
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 8;
 constexpr float kC1 = 0.01f * 0.01f;
 constexpr float kC2 = 0.03f * 0.03f;
+constexpr float k9 = 1.f / 9.f;
+
+// K3 tiling.
+constexpr int FWD_ROWS = 8;           // output rows per strip
+constexpr int FWD_IN = FWD_ROWS + 2;  // input rows per strip
+constexpr int FWD_SPAN = 30;          // output columns per warp (lanes 1-30)
+constexpr int FWD_WARPS = 4;          // warps per block, on consecutive strips
 
 // K4 tiling.
 constexpr int BX = 64;                                 // output tile width
@@ -103,77 +129,7 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-struct Moments {
-  float mx, my, exx, eyy, exy;
-};
-
-// 3x3 window moments of the tile entry whose window starts at (r, c).
-template <int LD>
-__device__ __forceinline__ Moments window(const float (*sx)[LD], const float (*sy)[LD], int r,
-                                          int c) {
-  Moments m = {0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float a = sx[r + i][c + j], b = sy[r + i][c + j];
-      m.mx += a;
-      m.my += b;
-      m.exx += a * a;
-      m.eyy += b * b;
-      m.exy += a * b;
-    }
-  }
-  m.mx /= 9.f;
-  m.my /= 9.f;
-  m.exx /= 9.f;
-  m.eyy /= 9.f;
-  m.exy /= 9.f;
-  return m;
-}
-
-__global__ void photometric_fwd_kernel(const float* __restrict__ pred,
-                                       const float* __restrict__ target, float* __restrict__ out,
-                                       int C, int H, int W, float ssim_weight) {
-  __shared__ float sx[TY + 2][TX + 2];
-  __shared__ float sy[TY + 2][TX + 2];
-  const int b = blockIdx.z;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int ox = x0 + tx, oy = y0 + ty;
-  const bool valid = ox < W && oy < H;
-  const long long HW = static_cast<long long>(H) * W;
-
-  float ssim_sum = 0.f, l1_sum = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float* px = pred + (static_cast<long long>(b) * C + c) * HW;
-    const float* py = target + (static_cast<long long>(b) * C + c) * HW;
-    for (int i = tid; i < (TY + 2) * (TX + 2); i += TX * TY) {
-      const int r = i / (TX + 2), q = i % (TX + 2);
-      const long long at = static_cast<long long>(reflect(y0 - 1 + r, H)) * W + reflect(x0 - 1 + q, W);
-      sx[r][q] = px[at];
-      sy[r][q] = py[at];
-    }
-    __syncthreads();
-    if (valid) {
-      const Moments m = window<TX + 2>(sx, sy, ty, tx);
-      const float sigx = m.exx - m.mx * m.mx;
-      const float sigy = m.eyy - m.my * m.my;
-      const float sxy = m.exy - m.mx * m.my;
-      const float num = (2.f * m.mx * m.my + kC1) * (2.f * sxy + kC2);
-      const float den = (m.mx * m.mx + m.my * m.my + kC1) * (sigx + sigy + kC2);
-      ssim_sum += fminf(fmaxf((1.f - num / den) / 2.f, 0.f), 1.f);
-      l1_sum += fabsf(sy[ty + 1][tx + 1] - sx[ty + 1][tx + 1]);
-    }
-    __syncthreads();
-  }
-  if (valid) {
-    out[b * HW + static_cast<long long>(oy) * W + ox] =
-        ssim_weight * (ssim_sum / C) + (1.f - ssim_weight) * (l1_sum / C);
-  }
-}
-
-// Horizontal 3-sums of x, y, x^2, y^2, xy over one staged row.
+// Horizontal 3-sums of x, y, x^2, y^2, xy over three neighbouring columns.
 __device__ __forceinline__ void row_sums(const float* x, const float* y, float h[5]) {
   const float a0 = x[0], a1 = x[1], a2 = x[2];
   const float b0 = y[0], b1 = y[1], b2 = y[2];
@@ -183,6 +139,102 @@ __device__ __forceinline__ void row_sums(const float* x, const float* y, float h
   h[3] = b0 * b0 + b1 * b1 + b2 * b2;
   h[4] = a0 * b0 + a1 * b1 + a2 * b2;
 }
+
+// ---- K3 --------------------------------------------------------------------
+
+// One channel of a lane's strip: its column of the FWD_IN input rows.
+struct Strip {
+  float x[FWD_IN];  // pred
+  float y[FWD_IN];  // target
+};
+
+__device__ __forceinline__ void load_strip(Strip& s, const float* __restrict__ px,
+                                           const float* __restrict__ py, const int (&roff)[FWD_IN],
+                                           int col) {
+#pragma unroll
+  for (int i = 0; i < FWD_IN; ++i) {
+    s.x[i] = __ldg(px + roff[i] + col);
+    s.y[i] = __ldg(py + roff[i] + col);
+  }
+}
+
+// Adds one channel's ws * SSIM distance + wl * |t - p| to each output of the
+// strip. The neighbour columns come from the lanes beside; lanes 0 and 31
+// compute what no one keeps.
+__device__ __forceinline__ void accumulate(const Strip& s, float (&acc)[FWD_ROWS], float ws,
+                                           float wl) {
+  constexpr unsigned kAll = 0xffffffffu;
+  float up2[5] = {}, up1[5] = {};  // horizontal sums of the two rows above
+#pragma unroll
+  for (int i = 0; i < FWD_IN; ++i) {
+    // The four shuffles of a row go out before any of them is used: written
+    // as two initializer lists (shuffle, use, shuffle), the kernel measured
+    // 14% slower.
+    float a[3], b[3];
+    a[0] = __shfl_up_sync(kAll, s.x[i], 1);
+    b[0] = __shfl_up_sync(kAll, s.y[i], 1);
+    a[2] = __shfl_down_sync(kAll, s.x[i], 1);
+    b[2] = __shfl_down_sync(kAll, s.y[i], 1);
+    a[1] = s.x[i];
+    b[1] = s.y[i];
+    float h[5];
+    row_sums(a, b, h);
+    if (i >= 2) {
+      const float mx = (up2[0] + up1[0] + h[0]) * k9;
+      const float my = (up2[1] + up1[1] + h[1]) * k9;
+      const float exx = (up2[2] + up1[2] + h[2]) * k9;
+      const float eyy = (up2[3] + up1[3] + h[3]) * k9;
+      const float exy = (up2[4] + up1[4] + h[4]) * k9;
+      const float sigx = exx - mx * mx;
+      const float sigy = eyy - my * my;
+      const float sxy = exy - mx * my;
+      const float num = (2.f * mx * my + kC1) * (2.f * sxy + kC2);
+      const float den = (mx * mx + my * my + kC1) * (sigx + sigy + kC2);
+      const float ssim = fminf(fmaxf((1.f - __fdividef(num, den)) * 0.5f, 0.f), 1.f);
+      acc[i - 2] += ws * ssim + wl * fabsf(s.y[i - 1] - s.x[i - 1]);
+    }
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      up2[m] = up1[m];
+      up1[m] = h[m];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32 * FWD_WARPS)
+    photometric_fwd_kernel(const float* __restrict__ pred, const float* __restrict__ target,
+                           float* __restrict__ out, int C, int H, int W, float ssim_weight) {
+  const int row0 = (blockIdx.y * FWD_WARPS + threadIdx.y) * FWD_ROWS;
+  if (row0 >= H) return;  // the whole warp
+  const int lane = threadIdx.x, b = blockIdx.z;
+  // Lane l holds column ox; lane 0's lies left of the band, lane 31's right.
+  const int ox = blockIdx.x * FWD_SPAN + lane - 1;
+  const int col = reflect(ox, W);
+  int roff[FWD_IN];
+#pragma unroll
+  for (int i = 0; i < FWD_IN; ++i) roff[i] = reflect(row0 - 1 + i, H) * W;
+  const size_t HW = static_cast<size_t>(H) * W;
+  const float* px = pred + static_cast<size_t>(b) * C * HW;
+  const float* py = target + static_cast<size_t>(b) * C * HW;
+
+  const float ws = ssim_weight / C, wl = (1.f - ssim_weight) / C;
+  float acc[FWD_ROWS] = {};
+  Strip cur, nxt;
+  load_strip(cur, px, py, roff, col);
+  for (int c = 0; c < C; ++c) {
+    // The next channel's loads go out before this channel's math.
+    if (c + 1 < C) load_strip(nxt, px + (c + 1) * HW, py + (c + 1) * HW, roff, col);
+    accumulate(cur, acc, ws, wl);
+    if (c + 1 < C) cur = nxt;
+  }
+  if (lane < 1 || lane > 30 || ox >= W) return;
+  float* o = out + b * HW + ox;
+#pragma unroll
+  for (int r = 0; r < FWD_ROWS; ++r)
+    if (row0 + r < H) o[(row0 + r) * W] = acc[r];
+}
+
+// ---- K4 --------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kBwdThreads)
     photometric_bwd_kernel(const float* __restrict__ pred, const float* __restrict__ target,
@@ -230,7 +282,6 @@ __global__ void __launch_bounds__(kBwdThreads)
 
   const float ssim_scale = ssim_weight / C;
   const float l1_scale = (1.f - ssim_weight) / C;
-  constexpr float k9 = 1.f / 9.f;
 
   // Output strip of this thread and its stencil weights (rows, then columns).
   const int lx = tid % BX, ly0 = (tid / BX) * STRIP;
@@ -321,9 +372,8 @@ __global__ void __launch_bounds__(kBwdThreads)
         const float sR = wr[t][0] * hR[t] + wr[t][1] * hR[t + 1] + wr[t][2] * hR[t + 2];
         const float sS = wr[t][0] * hS[t] + wr[t][1] * hS[t + 1] + wr[t][2] * hS[t + 2];
         const float xr = sx[(ly + 2) * IN_LD + lx + 4], yr = sy[(ly + 2) * IN_LD + lx + 4];
-        const float diff = xr - yr;
-        const float l1 = s_g[(ly + 1) * CO_LD + lx + 1] * l1_scale *
-                         (diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f));
+        // d|t - p| / dp, with jnp.abs's subgradient at a tie: -1 where p == t.
+        const float l1 = s_g[(ly + 1) * CO_LD + lx + 1] * l1_scale * (xr - yr > 0.f ? 1.f : -1.f);
         const size_t at = plane + oy * W + ox;
         d_pred[at] = sP + 2.f * xr * sR + yr * sS + l1;
         if (want_target) {
@@ -336,8 +386,6 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-dim3 tiles(int B, int H, int W) { return dim3((W + TX - 1) / TX, (H + TY - 1) / TY, B); }
-
 size_t bwd_smem_bytes(int C) {
   return sizeof(float) * (static_cast<size_t>(2 * C) * IN_ROWS * IN_LD + 5 * CO_MAP);
 }
@@ -346,8 +394,10 @@ size_t bwd_smem_bytes(int C) {
 
 extern "C" int photometric_fwd(const float* pred, const float* target, float* out, int B, int C,
                                int H, int W, float ssim_weight, void* stream) {
-  if (B > 0 && H > 0 && W > 0) {
-    photometric_fwd_kernel<<<tiles(B, H, W), dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
+  if (B > 0 && C > 0 && H > 0 && W > 0) {
+    const int strips = (H + FWD_ROWS - 1) / FWD_ROWS;
+    const dim3 grid((W + FWD_SPAN - 1) / FWD_SPAN, (strips + FWD_WARPS - 1) / FWD_WARPS, B);
+    photometric_fwd_kernel<<<grid, dim3(32, FWD_WARPS), 0, static_cast<cudaStream_t>(stream)>>>(
         pred, target, out, C, H, W, ssim_weight);
   }
   return static_cast<int>(cudaGetLastError());

@@ -32,7 +32,8 @@
 // unnormalize / border clamp / floor / clip in registers, reads the four
 // taps of every channel, sums the coordinate gradient over channels in
 // registers and writes d_grid once per pixel; it is zero where the clamp
-// saturates (the coordinate lies outside [0, size-1]). d_image, needed only
+// saturates (the coordinate lies outside [0, size-1]) and half where the
+// coordinate lies exactly on 0 or size-1, as jnp.clip's. d_image, needed only
 // when the image requires a gradient, is the scatter-add transpose of the
 // four taps, done with atomicAdd into a zeroed buffer, so its sums run in no
 // fixed order.
@@ -55,9 +56,10 @@ constexpr int FWD_PX = 2;               // output pixels per thread, along a row
 constexpr int FWD_TW = FWD_TX * FWD_PX; // output tile width (64); height FWD_TY
 
 struct Coord {
-  int i0;      // tap origin, in [0, size - 2]
-  float w;     // lerp weight toward i0 + 1, in [0, 1]
-  bool inside; // unclamped coordinate within [0, size - 1]
+  int i0;        // tap origin, in [0, size - 2]
+  float w;       // lerp weight toward i0 + 1, in [0, 1]
+  float inside;  // d clamp / d u: 1 strictly inside [0, size - 1], 0.5 on its
+                 // bounds (jnp.clip's subgradient), 0 outside
 };
 
 __device__ __forceinline__ Coord unnormalize(float g, int size) {
@@ -68,7 +70,7 @@ __device__ __forceinline__ Coord unnormalize(float g, int size) {
   Coord r;
   r.i0 = static_cast<int>(f);
   r.w = c - f;
-  r.inside = (u >= 0.0f) && (u <= hi);
+  r.inside = (u > 0.0f && u < hi) ? 1.0f : ((u == 0.0f || u == hi) ? 0.5f : 0.0f);
   return r;
 }
 
@@ -159,8 +161,8 @@ __global__ void warp_bwd_kernel(const float* __restrict__ img, const float* __re
       atomicAdd(d + W + 1, gb * cx.w);
     }
   }
-  d_grid[2 * n] = cx.inside ? dwx * 0.5f * static_cast<float>(W - 1) : 0.0f;
-  d_grid[2 * n + 1] = cy.inside ? dwy * 0.5f * static_cast<float>(H - 1) : 0.0f;
+  d_grid[2 * n] = cx.inside * dwx * 0.5f * static_cast<float>(W - 1);
+  d_grid[2 * n + 1] = cy.inside * dwy * 0.5f * static_cast<float>(H - 1);
 }
 
 unsigned int blocks_for(long long n) {

@@ -44,8 +44,10 @@ def ssim_plain(x, y):
 
 
 def reprojection_loss_plain(pred, target, ssim_weight=0.85):
-    """Plain PyTorch version: w * mean_c SSIM + (1 - w) * mean_c L1."""
-    l1 = torch.mean(torch.abs(target - pred), dim=1, keepdim=True)
+    """Plain PyTorch version: w * mean_c SSIM + (1 - w) * mean_c L1. The L1
+    takes ``jnp.abs``'s subgradient 1 at 0 (``torch.abs`` takes 0)."""
+    d = target - pred
+    l1 = torch.mean(torch.where(d >= 0, d, -d), dim=1, keepdim=True)
     ssim_term = torch.mean(ssim_plain(pred, target), dim=1, keepdim=True)
     return ssim_weight * ssim_term + (1.0 - ssim_weight) * l1
 

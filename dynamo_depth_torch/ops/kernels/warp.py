@@ -9,7 +9,8 @@ Semantics (``dynamo_depth_tpu/ops/warp.py:25-41``): unnormalize
 ``g = (grid + 1) / 2 * (size - 1)``, clamp the coordinate to
 ``[0, size - 1]``, origin ``floor`` clipped to ``[0, size - 2]``, lerp
 weight ``g - origin`` (1 at the far border). The coordinate gradient is zero
-where the clamp saturates.
+where the clamp saturates and, as ``jnp.clip``'s, half where the coordinate
+lies exactly on 0 or ``size - 1``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,15 @@ from dynamo_depth_torch.ops.kernels import build
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
 
 
+def _clip(u, hi):
+    """``jnp.clip(u, 0, hi)`` with its gradient, 0.5 at either bound
+    (``Tensor.clamp`` passes 1 there)."""
+    return torch.minimum(torch.maximum(u, u.new_zeros(())), u.new_full((), hi))
+
+
 def _coords(grid, H, W):
-    gx = ((grid[..., 0] + 1.0) * 0.5 * (W - 1)).clamp(0.0, W - 1)
-    gy = ((grid[..., 1] + 1.0) * 0.5 * (H - 1)).clamp(0.0, H - 1)
+    gx = _clip((grid[..., 0] + 1.0) * 0.5 * (W - 1), W - 1)
+    gy = _clip((grid[..., 1] + 1.0) * 0.5 * (H - 1), H - 1)
     x0 = torch.floor(gx).clamp(0, W - 2).detach()
     y0 = torch.floor(gy).clamp(0, H - 2).detach()
     return x0, y0, gx - x0, gy - y0

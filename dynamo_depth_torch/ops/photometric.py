@@ -23,10 +23,13 @@ def smooth_loss(inp, img=None):
     """Edge-aware first-order smoothness for ``(B, C, H, W)`` (tools.py:311-326).
 
     When ``img`` is given, gradients are attenuated by exp(-|∇img|) with the
-    image gradient channel-meaned.
+    image gradient channel-meaned. |·| of ``inp``'s differences takes
+    ``jnp.abs``'s subgradient 1 at 0 (``torch.abs`` takes 0).
     """
-    gx = torch.abs(inp[..., :-1] - inp[..., 1:])
-    gy = torch.abs(inp[..., :-1, :] - inp[..., 1:, :])
+    dx = inp[..., :-1] - inp[..., 1:]
+    dy = inp[..., :-1, :] - inp[..., 1:, :]
+    gx = torch.where(dx >= 0, dx, -dx)
+    gy = torch.where(dy >= 0, dy, -dy)
     if img is not None:
         igx = torch.mean(torch.abs(img[..., :-1] - img[..., 1:]), dim=1, keepdim=True)
         igy = torch.mean(torch.abs(img[..., :-1, :] - img[..., 1:, :]), dim=1, keepdim=True)

@@ -106,8 +106,10 @@ def view_synthesis(cfg, inputs, outputs, *, bool_CmpFlow, bool_MotMask, automask
 
 
 def _bce_with_logits(logits, targets):
-    """Elementwise BCEWithLogits (no reduction)."""
-    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
+    """Elementwise BCEWithLogits (no reduction), with ``jnp.maximum``'s and
+    ``jnp.abs``'s subgradients at logits == 0 (0.5 and 1)."""
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    return torch.maximum(logits, torch.zeros_like(logits)) - logits * targets + torch.log1p(torch.exp(-magnitude))
 
 
 def process_ground(cfg, inputs, outputs, scale, generator):
@@ -207,8 +209,10 @@ def compute_losses(
         if combined.shape[1] == 1:
             to_optimise = combined[:, 0]
         else:
-            to_optimise, idxs = torch.min(combined, dim=1)
+            # amin, as jnp.min, splits the gradient evenly among tied sources.
+            to_optimise = torch.amin(combined, dim=1)
             if automask:
+                idxs = torch.argmin(combined, dim=1)
                 outputs[f"identity_selection/{scale}"] = (idxs > identity.shape[1] - 1).float()
         ps["p_photo"] = torch.mean(to_optimise)
 
@@ -220,7 +224,7 @@ def compute_losses(
                 ps["d_smooth"] = smooth_loss(norm_disp, color_s) / (2 ** scale)
             if cfg.g_d_ground > 0 and bool_MotMask:
                 _, disp_diff, _ = process_ground(cfg, inputs, outputs, scale, generator)
-                disp_diff = torch.clamp(disp_diff, max=0.0)  # below ground is negative
+                disp_diff = torch.minimum(disp_diff, torch.zeros_like(disp_diff))  # below ground is negative
                 ps["d_ground"] = -1.0 * torch.mean(disp_diff) / (2 ** scale)
 
         # --- motion regularization -----------------------------------------

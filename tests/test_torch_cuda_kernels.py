@@ -6,13 +6,19 @@ has no CPU mode). On the card:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Shapes are chosen for the edges of the kernels' tiling: widths that are not
-multiples of the tiles (32 for K3, 64 for K1 and K4) or of K1's 2-pixel and
-K4's 16-byte vectors, heights not multiples of 8 or of K4's 16-row tile and
-4-row strips, the smallest images (2 and 3 pixels, where every pixel is a
-reflected border), one and four channels. K1 is also run on grids at both
-ends of locality: near the identity (neighbouring pixels share taps), the
-ego-motion stand-in ``training/synthetic.py::ego_motion_grid``, and uniform
-over the image (every tap in its own cache sector).
+multiples of the tiles (64 for K1 and K4, K3's 30-column warp bands) or of
+K1's 2-pixel and K4's 16-byte vectors, heights not multiples of K3's 8-row
+strips, K4's 16-row tile or its 4-row strips, the smallest images (2 and 3
+pixels, where every pixel is a reflected border), one and four channels. K1
+is also run on grids at both ends of locality: near the identity
+(neighbouring pixels share taps), the ego-motion stand-in
+``training/synthetic.py::ego_motion_grid``, and uniform over the image (every
+tap in its own cache sector).
+
+At exact ties the kernels take the JAX package's subgradients, as the plain
+versions do: K2 passes half the coordinate gradient where a grid entry is
+exactly -1 or 1, K4 the L1 subgradient of ``jnp.abs`` where pred equals
+target. Both are held here on inputs with such ties.
 """
 
 import pytest
@@ -36,15 +42,21 @@ def _scale_tol(ref, rel):
     return rel * max(1.0, float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("border", ["beyond", "on"])
 @pytest.mark.parametrize("shape", [
     (2, 3, 9, 13, 7, 11), (1, 3, 2, 2, 5, 3), (2, 1, 37, 70, 37, 70), (1, 4, 8, 32, 16, 64),
     (1, 3, 3, 3, 3, 3), (2, 4, 17, 67, 17, 67), (1, 1, 20, 130, 9, 65), (1, 3, 24, 64, 24, 128),
 ])
-def test_warp_kernels_match_plain(dev, shape):
+def test_warp_kernels_match_plain(dev, shape, border):
     B, C, H, W, Ho, Wo = shape
     g = torch.Generator(device=dev).manual_seed(0)
     img = torch.rand(B, C, H, W, device=dev, generator=g, requires_grad=True)
-    grid = (torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2).requires_grad_()
+    # [-1.2, 1.2]: ~1/6 of the entries per axis lie beyond the border;
+    # clipped to [-1, 1] ("on"), those lie exactly on it.
+    grid = torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2
+    if border == "on":
+        grid = grid.clamp(-1.0, 1.0)
+    grid.requires_grad_()
     cot = torch.randn(B, C, Ho, Wo, device=dev, generator=g)
 
     reset_launch_counts()
@@ -100,14 +112,18 @@ def test_warp_fwd_on_near_and_far_grids_matches_plain_and_grid_sample(dev, kind,
     torch.testing.assert_close(out, out_l, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("target_is", ["random", "pred"])
 @pytest.mark.parametrize("shape", [
     (2, 3, 10, 12), (1, 3, 4, 4), (1, 3, 2, 2), (2, 1, 37, 70), (1, 3, 192, 640),
     (1, 3, 3, 3), (1, 4, 2, 2), (2, 4, 17, 67), (1, 1, 18, 66), (1, 3, 33, 130), (1, 3, 16, 64),
+    (1, 1, 3, 3), (1, 4, 9, 31), (2, 1, 25, 61), (1, 3, 41, 91), (1, 4, 7, 120),
 ])
-def test_photometric_kernels_match_plain(dev, shape):
+def test_photometric_kernels_match_plain(dev, shape, target_is):
     g = torch.Generator(device=dev).manual_seed(1)
     pred = torch.rand(*shape, device=dev, generator=g, requires_grad=True)
     target = torch.rand(*shape, device=dev, generator=g, requires_grad=True)
+    if target_is == "pred":  # a textured image against itself: the L1 term at its tie
+        target = pred.detach().clone().requires_grad_()
     cot = torch.randn(shape[0], 1, shape[2], shape[3], device=dev, generator=g)
 
     reset_launch_counts()

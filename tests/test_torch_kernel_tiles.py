@@ -3,12 +3,9 @@
 K1 and K2 are timed on ``training/synthetic.py::ego_motion_grid``, a
 stand-in for a trained model's ego-motion, so the grid is checked for the
 displacement it stands for and the warp is held to the JAX package on it.
-Where pred equals target the photometric gradients of the two packages
-differ: the SSIM clip's edge s = 0 (``jnp.clip`` passes half the gradient,
-PyTorch's ``clamp`` all of it) moves nothing, since the SSIM gradient
-vanishes where the windows are equal; but in the L1 term ``jnp.abs`` has
-the subgradient 1 at 0, ``torch.abs`` (and the reference's PyTorch code, and
-K4) 0.
+Where pred equals target the L1 term takes ``jnp.abs``'s subgradient 1 at 0
+in the port too; the SSIM clip's edge s = 0 moves nothing there, since the
+SSIM gradient vanishes where the windows are equal.
 """
 
 import jax
@@ -65,7 +62,7 @@ def test_photometric_gradient_where_pred_equals_target(rng, flat):
     p = torch.tensor(nhwc_to_nchw(pred), requires_grad=True)
     out = tp.reprojection_loss(p, torch.tensor(nhwc_to_nchw(pred)), ssim_weight=0.85)
     (out * torch.tensor(nhwc_to_nchw(g))).sum().backward()
-    # The SSIM term: ~0 on both sides, whatever the clip passes at s = 0. The
-    # L1 term: jnp.abs'(0) = 1 gives the JAX package -(1 - w) / C * g.
-    l1_tie = -(1.0 - 0.85) / C * np.broadcast_to(g, pred.shape)
-    np.testing.assert_allclose(nchw_to_nhwc(p.grad.numpy()), np.asarray(d_ref) - l1_tie, atol=1e-5, rtol=0)
+    # The SSIM term is ~0 on both sides, whatever the clip passes at s = 0;
+    # the L1 term, -(1 - w) / C * g on both, is what the comparison holds.
+    assert np.abs(np.asarray(d_ref)).max() > 0.01
+    np.testing.assert_allclose(nchw_to_nhwc(p.grad.numpy()), np.asarray(d_ref), atol=1e-5, rtol=0)

@@ -3,8 +3,8 @@
 The port's ``reprojection_loss`` takes its plain PyTorch version for CPU
 tensors; the JAX side runs both its XLA formulation and the fused Pallas
 kernel (``reprojection_loss_fused``, in interpret mode on the CPU).
-Inputs are kept away from the SSIM clip bounds and from pred == target,
-where JAX's and torch's gradients legitimately differ at exact ties.
+Random inputs keep away from exact ties; the gradients at pred == target
+are held in ``test_torch_kernel_tiles.py``.
 """
 
 import jax
