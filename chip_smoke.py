@@ -32,7 +32,18 @@ Phases (any failure exits non-zero, nothing is caught):
    own device time inside it; then one more step whose six warp inputs are
    captured, with each grid's displacement and the warp kernels and
    ``F.grid_sample``'s forward and backward (``grid_sampler_2d``) timed alone
-   on them.
+   on them;
+7. the curriculum from the port's entry point,
+   ``dynamo_depth_torch.train.main``, on the vendored ``assets/tiny_kitti``
+   (LiteMono, 192x640, batch 3, float32, one epoch of 3 steps per phase, one
+   validation batch per step, a split under ``build/chip_smoke``): which
+   decoder loaded the images, each phase's kernel launches per step against
+   the count that phase must make, finite losses, the trainable modules'
+   weights moved and the frozen ones' bit-identical, ms/step and the
+   data-wait and compute time of each phase, peak memory, four checkpoint
+   folders in the reference's layout, ``fine_tune_00`` loaded into a fresh
+   trainer with the same state dict, and one more ``fine_tune`` step from it
+   with ``--load_ckpt ... --resume_optim``.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -40,9 +51,12 @@ Prints one ``{"kernels": [...]}`` line, then, last, the
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -70,6 +84,167 @@ def check(name, err, tol):
     print(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.1e}) {'ok' if ok else 'FAILED'}")
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
+
+
+# Launches of each kernel in one training step of each phase: 3 scales x 2
+# source frames of the warp and the photometric error, and in disp_init
+# another 6 photometric forwards for the identity automask, whose inputs
+# need no gradient.
+EXPECTED_PER_STEP = {
+    phase: {"warp_fwd": 6, "warp_bwd": 6, "photometric_fwd": 12 if phase == "disp_init" else 6,
+            "photometric_bwd": 6}
+    for phase in ("disp_init", "motion_init", "mask_init", "fine_tune")
+}
+
+
+def run_curriculum(smi):
+    """Phase 7. Returns {"launches": {kernel: n}, "per_step": {kernel:
+    {phase: n}}, "summary": {...}}; raises SystemExit on any failure."""
+    import torch
+
+    from dynamo_depth_torch import train as train_entry
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.data import base as data_base, native
+    from dynamo_depth_torch.models.model import MODULE_NAMES, modules_for_networks
+    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dynamo_depth_torch.training import trainer as trainer_mod
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    split_dir = work / "splits" / "tiny_kitti"
+    split_dir.mkdir(parents=True)
+    items = [f"2011_09_26/2011_09_26_drive_0001_sync {i} {side}" for i in (0, 1) for side in ("l", "r")]
+    for which in ("train", "val"):
+        (split_dir / f"{which}_files.txt").write_text("".join(line + "\n" for line in items))
+    os.environ["DYNAMO_SPLITS_DIR"] = str(work / "splits")
+    log_dir = work / "logs"
+    argv = [
+        "-d", "kitti", "-n", "curriculum", "--data_path", str(root / "assets" / "tiny_kitti") + "/",
+        "--split", "tiny_kitti", "--depth_model", "litemono", "--batch_size", str(B), "--weights_init", "scratch",
+        "--epoch_schedules", "1", "1", "1", "1", "--epoch-size", "3", "--log_frequency", "1",
+        "--no_train_vis", "--log_dir", str(log_dir),
+        "--print_opt", "",  # a bool flag of the reference's: the empty string is False
+    ]
+    print(f"curriculum: python -m dynamo_depth_torch.train {' '.join(argv)}")
+    print(f"  native data plane: {'built' if native.available() else 'not built: ' + str(native.build_error).splitlines()[-1]}")
+
+    # Per phase: each step's launches, time and losses (the wrapper adds
+    # nothing to the step but the synchronisations around it), and the
+    # weights before and after.
+    steps = {p: [] for p in trainer_mod.PHASES}
+    weights = {}
+    run_step, run_phase = trainer_mod.Trainer.train_step, trainer_mod.Trainer.run_phase
+
+    def recorded_step(self, batch, generator, step):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses = run_step(self, batch, generator, step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        steps[self.phase].append({"ms": ms, "launches": {k: after[k] - before[k] for k in after},
+                                  "losses": {k: float(v) for k, v in losses.items()}})
+        return losses
+
+    def recorded_phase(self, phase, num_epoch):
+        before = {n: p.detach().clone() for n, p in self.model.named_parameters()}
+        run_phase(self, phase, num_epoch)
+        weights[phase] = (before, {n: p.detach().clone() for n, p in self.model.named_parameters()})
+
+    trainer_mod.Trainer.train_step, trainer_mod.Trainer.run_phase = recorded_step, recorded_phase
+    try:
+        data_base.reset_decode_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_entry.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        decodes = data_base.decode_counts()
+    finally:
+        trainer_mod.Trainer.train_step, trainer_mod.Trainer.run_phase = run_step, run_phase
+
+    decoder = " and ".join(f"{k} ({n} frames)" for k, n in decodes.items() if n) or "none"
+    print(f"  images decoded by: {decoder}")
+    if not any(decodes.values()):
+        raise SystemExit("the curriculum decoded no image")
+    zero = [k for k, n in launches.items() if n == 0]
+    if zero:
+        raise SystemExit(f"kernels never launched in the curriculum: {zero}")
+    per_step = {k: {} for k in launches}
+    summary = {"wall_s": wall_s, "peak_bytes": peak, "decoder": decodes, "phases": {}}
+    for phase, recs in steps.items():
+        if len(recs) != 3:
+            raise SystemExit(f"{phase}: {len(recs)} steps, expected 3")
+        for i, rec in enumerate(recs):
+            if rec["launches"] != EXPECTED_PER_STEP[phase]:
+                raise SystemExit(f"{phase} step {i}: launches {rec['launches']}, expected {EXPECTED_PER_STEP[phase]}")
+            bad = [k for k, v in rec["losses"].items() if not math.isfinite(v)]
+            if bad:
+                raise SystemExit(f"{phase} step {i}: non-finite losses {bad}")
+        for k in launches:
+            per_step[k][phase] = recs[0]["launches"][k]
+        before, after = weights[phase]
+        trainable = modules_for_networks(trainer_mod.PHASE_SPEC[phase][2])
+        for module in MODULE_NAMES:
+            names = [n for n in before if n.startswith(module + ".")]
+            moved = [n for n in names if not torch.equal(before[n], after[n])]
+            if module in trainable and not moved:
+                raise SystemExit(f"{phase}: trainable module {module} did not move")
+            if module not in trainable and moved:
+                raise SystemExit(f"{phase}: frozen module {module} changed: {moved[:3]}")
+        timing = [h for h in trainer.history if h["mode"] == "time" and h["phase"] == phase]
+        data_s = sum(h["data_s"] for h in timing)
+        compute_s = sum(h["compute_s"] for h in timing)
+        ms = float(np.median([r["ms"] for r in recs]))
+        summary["phases"][phase] = {"ms_per_step": ms, "step_ms": [r["ms"] for r in recs], "data_wait_s": data_s,
+                                    "compute_s": compute_s, "loss": recs[-1]["losses"]["loss"]}
+        each = ", ".join(f"{r['ms']:.1f}" for r in recs)
+        print(f"  {phase}: {ms:.2f} ms/step (median of 3: {each}), "
+              f"data wait {data_s * 1e3:.1f} ms and compute {compute_s * 1e3:.1f} ms over the logged steps "
+              f"(log_time), launches per step {recs[0]['launches']}, trainable {'/'.join(trainable)} moved, "
+              f"the others bit-identical, loss {recs[-1]['losses']['loss']:.5f} on {smi}")
+    print(f"  curriculum: {wall_s:.1f} s wall for 4 phases x 3 steps with a validation batch after each, "
+          f"peak memory {peak / 2**30:.2f} GiB on {smi}")
+
+    models = log_dir / "curriculum" / "models"
+    expected_files = {f"{m}.pth" for m in MODULE_NAMES} | {"adam.pth", "opt.json"}
+    for phase in trainer_mod.PHASES:
+        folder = models / f"{phase}_00"
+        files = {f.name for f in folder.iterdir()} if folder.is_dir() else set()
+        if files != expected_files:
+            raise SystemExit(f"{folder}: {sorted(files)}, expected {sorted(expected_files)}")
+    print(f"  checkpoints: {', '.join(f'{p}_00' for p in trainer_mod.PHASES)}, each with "
+          f"{len(MODULE_NAMES)} module files, adam.pth and opt.json")
+
+    last = models / "fine_tune_00"
+    cfg = DynamoConfig.from_dict(json.loads((last / "opt.json").read_text()))
+    cfg.load_ckpt = str(last)
+    fresh = trainer_mod.Trainer(cfg)
+    mine, loaded = trainer.model.state_dict(), fresh.model.state_dict()
+    differ = [k for k in mine if not torch.equal(mine[k], loaded[k])]
+    if mine.keys() != loaded.keys() or differ:
+        raise SystemExit(f"fine_tune_00 loaded into a fresh trainer differs: {differ[:5]}")
+    print(f"  fine_tune_00 loaded into a fresh Trainer: all {len(mine)} state-dict entries equal")
+    del fresh
+
+    resumed = train_entry.main(argv[:argv.index("--epoch_schedules")] + [
+        "--epoch_schedules", "0", "0", "0", "1", "--epoch-size", "1", "--log_frequency", "1", "--no_train_vis",
+        "--log_dir", str(work / "resumed"), "--print_opt", "", "--load_ckpt", str(last), "--resume_optim",
+    ])
+    losses = [h["scalars"]["loss"] for h in resumed.history if h["mode"] == "train"]
+    if resumed.opt_steps != 4 or len(losses) != 1 or not math.isfinite(losses[0]):
+        raise SystemExit(f"resumed fine_tune: {resumed.opt_steps} optimizer steps (expected 3 restored + 1), "
+                         f"train losses {losses}")
+    print(f"  one more fine_tune step from fine_tune_00 with --resume_optim: Adam's count 3 -> 4, "
+          f"loss {losses[0]:.5f}")
+    summary["resumed_loss"] = losses[0]
+    return {"launches": launches, "per_step": per_step, "summary": summary}
 
 
 def main():
@@ -410,6 +585,9 @@ def main():
               f"({'kernel faster' if ours < lib else 'library faster'})")
     del captured, out_lib
 
+    # ---- 7. the curriculum from the port's entry point, on tiny_kitti -----
+    phase7 = run_curriculum(smi)
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -423,7 +601,8 @@ def main():
         ms_k, plain_ms, lib_ms = timings[(k, "uniform" if warp_k else None)]
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[k], "launches_per_step": counts[k] / steps, "max_abs_err": errors[k],
+            "launches": phase7["launches"][k], "launches_per_step_by_phase": phase7["per_step"][k],
+            "launches_fine_tune_steps": counts[k], "launches_per_step": counts[k] / steps, "max_abs_err": errors[k],
             "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": lib_ms, "wall_ms": wall[(k, "uniform" if warp_k else None)][0],
             "in_step_ms": in_step[k],
@@ -436,7 +615,7 @@ def main():
                           "library_ms_step_grids": float(np.mean(lib_step[k]))})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
-                      "peak_bytes": peak, "card": smi}))
+                      "peak_bytes": peak, "curriculum": phase7["summary"], "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

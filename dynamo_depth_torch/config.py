@@ -5,7 +5,9 @@ fields, defaults and two-stage resolution order
 
     explicit field  >  dataset-conditional default table  >  model-conditional scales
 
-so a config written for the JAX package parses here unchanged. Fields that
+so a config written for the JAX package parses here unchanged, and the same
+command line (:func:`parse_config`: the same flags, defaults and short
+names). Fields that
 only steered TPU formulations (``image_dtype``, ``pallas_warp``,
 ``pallas_photometric``, ``num_devices``, ``prefetch_depth``) keep their names
 so configs still parse; on the card the warp and photometric kernels are the
@@ -14,6 +16,9 @@ only path whatever they say.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -136,7 +141,8 @@ class DynamoConfig:
     prefetch_depth: int = 2
     # Seed for every RNG (numpy, torch generators).
     seed: int = 0
-    # Capture profiler traces into <log_dir>/traces when set.
+    # Capture a torch.profiler trace of each phase into
+    # <log_dir>/<model_name>/traces/<phase> when set.
     profile: bool = False
     # Selected the TPU's Pallas photometric / warp kernels in the JAX package.
     # On the card the port's CUDA kernels are the only path either way.
@@ -168,3 +174,93 @@ class DynamoConfig:
         if len(self.epoch_schedules) != 4 or any(e < 0 for e in self.epoch_schedules):
             raise ValueError(f"epoch_schedules(={self.epoch_schedules}) must be length=4 and non-negative")
         return self
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save(self, path: str) -> None:
+        """``opt.json``, as the JAX package writes it."""
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DynamoConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's command line, flag for flag (the JAX package's
+    ``build_parser``)."""
+    p = argparse.ArgumentParser(description="Dynamo options (PyTorch/CUDA)")
+    p.add_argument("--model_name", "-n", type=str, default="--")
+    p.add_argument("--log_dir", type=str, default="./logs")
+    p.add_argument("--eval_dir", type=str, default="./outputs")
+    p.add_argument("--cuda_ids", nargs="+", type=int, default=[0])
+    p.add_argument("--local_rank", type=int, default=0)
+    p.add_argument("--ddp", type=bool, default=False)
+    p.add_argument("--num_workers", type=int, default=2)
+    p.add_argument("--dataset", "-d", type=str, choices=["kitti", "waymo", "nuscenes"], default="waymo")
+    p.add_argument("--data_path", type=str, default=None)
+    p.add_argument("--split", type=str, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--img_ext", type=str, choices=[".png", ".jpg"], default=".jpg")
+    p.add_argument("--cam_name", type=str, default=None)
+    p.add_argument("--g_p_photo", type=float, default=1.0)
+    p.add_argument("--g_d_smooth", type=float, default=1e-3)
+    p.add_argument("--g_d_ground", type=float, default=0.1)
+    p.add_argument("--g_c_smooth", type=float, default=1e-3)
+    p.add_argument("--g_c_consistency", type=float, default=5.0)
+    p.add_argument("--g_m_sparsity", type=float, default=0.04)
+    p.add_argument("--g_m_smooth", type=float, default=0.1)
+    p.add_argument("--weight_ramp", nargs="+", type=str,
+                   default=["g_c_smooth", "g_c_consistency", "g_m_sparsity", "g_m_smooth"])
+    p.add_argument("--ramp_red", type=float, default=3)
+    p.add_argument("--ssim_weight", type=float, default=0.85)
+    p.add_argument("--mask_disp_thrd", type=float, default=0.03)
+    p.add_argument("--epoch_schedules", nargs="+", type=int, default=[1, 1, 5, 20])
+    p.add_argument("--epoch-size", dest="epoch_size", type=int, default=8000)
+    p.add_argument("--batch_size", "-b", type=int, default=3)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--scheduler_step_size", type=int, default=10)
+    p.add_argument("--depth_model", type=str, choices=["monodepthv2", "litemono"], default="litemono")
+    p.add_argument("--encoder_num_layers", type=int, default=18, choices=[18, 34, 50, 101, 152])
+    p.add_argument("--weights_init", type=str, default="pretrained", choices=["pretrained", "scratch"])
+    p.add_argument("--scales", nargs="+", type=int, default=None)
+    p.add_argument("--frame_ids", nargs="+", type=int, default=[0, -1, 1])
+    p.add_argument("--min_depth", type=float, default=0.1)
+    p.add_argument("--max_depth", type=float, default=100.0)
+    p.add_argument("--train_img_type", type=str, choices=["original", "downsample"], default=None)
+    p.add_argument("--gp_prior", type=float, default=0.4)
+    p.add_argument("--gp_tol", type=float, default=0.005)
+    p.add_argument("--gp_max_it", type=int, default=100)
+    p.add_argument("--gp_np_per_it", type=int, default=5)
+    p.add_argument("--gp_score_mode", type=str, default="per_batch", choices=["per_batch", "reference"])
+    p.add_argument("--load_ckpt", "-l", type=str, default="")
+    p.add_argument("--resume_optim", action="store_true")
+    p.add_argument("--log_frequency", type=int, default=100)
+    p.add_argument("--no_train_vis", action="store_true")
+    p.add_argument("--save_frequency", type=int, default=1)
+    p.add_argument("--comment", "-c", type=str, default="")
+    p.add_argument("--print_opt", type=bool, default=True)
+    p.add_argument("--eval_min_depth", type=float, default=1e-3)
+    p.add_argument("--eval_max_depth", type=float, default=None)
+    p.add_argument("--eval_img_bound", nargs="+", type=float, default=None)
+    p.add_argument("--eval_img_ext", type=str, choices=[".png", ".jpg"], default=None)
+    p.add_argument("--eval_img_type", type=str, choices=["original", "downsample"], default=None)
+    # Flags the JAX package added; see the fields' comments.
+    p.add_argument("--num_devices", type=int, default=0)
+    p.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--image_dtype", type=str, default="auto", choices=["auto", "float32", "bfloat16"])
+    p.add_argument("--prefetch_depth", type=int, default=2)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--pallas_photometric", action="store_true")
+    p.add_argument("--pallas_warp", action="store_true")
+    return p
+
+
+def parse_config(argv=None) -> DynamoConfig:
+    args = build_parser().parse_args(argv)
+    return DynamoConfig(**vars(args))

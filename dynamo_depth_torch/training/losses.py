@@ -105,6 +105,12 @@ def view_synthesis(cfg, inputs, outputs, *, bool_CmpFlow, bool_MotMask, automask
     return outputs
 
 
+def draw_automask_noise(shape, generator, device):
+    """Standard normal draws for the automask's tie-break noise (scaled by
+    1e-5 by the caller), from ``generator``."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def _bce_with_logits(logits, targets):
     """Elementwise BCEWithLogits (no reduction), with ``jnp.maximum``'s and
     ``jnp.abs``'s subgradients at logits == 0 (0.5 and 1)."""
@@ -201,7 +207,7 @@ def compute_losses(
                 [reprojection_loss(inputs[("color", f, 0)], target, ssim_weight=cfg.ssim_weight) for f in sources],
                 dim=1,
             )
-            noise = torch.randn(identity.shape, generator=generator, device=dev) * 1e-5
+            noise = draw_automask_noise(identity.shape, generator, dev) * 1e-5
             combined = torch.cat([identity + noise, reproj], dim=1)
         else:
             combined = reproj
@@ -241,8 +247,10 @@ def compute_losses(
                 if bool_MotMask and cfg.g_c_consistency > 0:
                     valid_disp = (disp > cfg.mask_disp_thrd).to(disp.dtype).detach()
                     mask_det = motion_mask.detach()
+                    # |residual_flow| with jnp.abs's subgradient, 1 at 0.
                     ps["c_consistency"] = ps["c_consistency"] + (
-                        torch.mean(valid_disp * (1 - mask_det) * torch.abs(residual_flow)) / (2 ** scale) / num_frames
+                        torch.mean(valid_disp * (1 - mask_det) * torch.where(residual_flow >= 0, residual_flow, -residual_flow))
+                        / (2 ** scale) / num_frames
                     )
 
             if move_MotMask and bool_MotMask:

@@ -1,8 +1,11 @@
-"""A fixed synthetic training batch in NCHW.
+"""A fixed synthetic training batch, and a sample grid that stands in for
+a trained model's ego-motion.
 
-The port's own copy of ``__graft_entry__.py::_synthetic_batch``: the same
-numpy draws in the same order (so both packages can be fed one batch), with
-images transposed to (B, 3, H, W).
+:func:`synthetic_batch` is the port's own copy of
+``__graft_entry__.py::_synthetic_batch``: the same numpy draws in the same
+order and the same layout, images (B, H, W, 3) as the data loader gives
+them, so both packages can be fed one batch. ``Trainer.to_device`` makes the
+images NCHW on the device.
 """
 
 from __future__ import annotations
@@ -19,13 +22,13 @@ K_NORM = np.array([[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0], [0, 0, 1, 0], [0, 0, 0,
 
 
 def synthetic_batch(cfg, batch_size, height, width, seed=0):
-    """{('color_aug', f, 0), ('color', f, 0): (B, 3, H, W), ('ts', f): (B,),
+    """{('color_aug', f, 0), ('color', f, 0): (B, H, W, 3), ('ts', f): (B,),
     ('K', s), ('inv_K', s): (B, 4, 4)} as float32 numpy arrays."""
     rng = np.random.RandomState(seed)
     batch = {}
     for f in cfg.frame_ids:
-        batch[("color_aug", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32).transpose(0, 3, 1, 2).copy()
-        batch[("color", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32).transpose(0, 3, 1, 2).copy()
+        batch[("color_aug", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32)
+        batch[("color", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32)
         batch[("ts", f)] = np.ones((batch_size,), np.float32)
     for s in cfg.scales:
         K = K_NORM.copy()

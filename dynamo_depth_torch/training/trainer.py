@@ -1,24 +1,40 @@
-"""The ``fine_tune`` training step (port of
-``dynamo_depth_tpu.training.trainer``, reference ``Trainer.py:466-497``).
+"""The curriculum trainer (port of ``dynamo_depth_tpu.training.trainer``,
+reference ``Trainer.py:19-756``).
 
-One :class:`Trainer` holds the model, the optimizer of one curriculum phase
-and the step. Per phase: the trainable networks (``PHASE_SPEC``), untrained
-modules frozen, a fresh Adam (eps 1e-8, the update optax.adam makes) with the
-step-halving learning-rate schedule, and the colour pyramid built on the
-device. Only ``fine_tune`` is ported; the other phases, checkpoints, data
-loading and evaluation come in later slices.
+Four phases, ``disp_init``, ``motion_init``, ``mask_init`` and ``fine_tune``
+(Trainer.py:466-497). Per phase: the trainable networks of ``PHASE_SPEC``,
+the other modules frozen (their parameters take no gradient and no update;
+their BatchNorm statistics still follow the batches, as in the JAX package,
+whose frozen modules are applied with ``train=True``), a fresh Adam (eps
+1e-8, the update optax.adam makes) with the step-halving learning-rate
+schedule over the epoch loader's length, and the automask in ``disp_init``
+only. Each epoch draws its training files anew (Trainer.py:519-522), batches
+come from the host loader one ahead of the step, the colour pyramid is built
+on the device, and every ``log_frequency`` steps one validation batch is
+scored. Each epoch ends with a checkpoint folder in the reference's layout
+(``training/checkpoint.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os.path as osp
+import time
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from dynamo_depth_torch.config import DynamoConfig
+from dynamo_depth_torch.data.loader import BatchLoader, make_dataset, sample_epoch_filenames
+from dynamo_depth_torch.data.splits import read_split, split_exists
 from dynamo_depth_torch.models.model import MODULE_NAMES, DynamoModel, modules_for_networks
+from dynamo_depth_torch.ops.metrics import depth_metrics
 from dynamo_depth_torch.ops.warp import resize_bicubic_aa
+from dynamo_depth_torch.training import checkpoint as ckpt
 from dynamo_depth_torch.training.losses import compute_losses, view_synthesis
+from dynamo_depth_torch.utils.io import join_dir, sec_to_hm_str
+
+PHASES = ("disp_init", "motion_init", "mask_init", "fine_tune")
 
 # Phase -> (bool_CmpFlow, bool_MotMask, trainable networks, lr factor)
 # (Trainer.py:466-490).
@@ -28,6 +44,9 @@ PHASE_SPEC = {
     "mask_init": (True, True, ("Pose", "CmpFlow", "MotMask"), 1.0),
     "fine_tune": (True, True, ("Depth", "Pose", "CmpFlow", "MotMask"), 0.5),
 }
+
+# Keys of a host batch that the step does not read.
+_HOST_ONLY = {"index", "gt_dim", "sem_mask", "mot_mask", "depth_gt", "depth_valid"}
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -39,27 +58,36 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return torch.device(device)
 
 
+def _to_layout(key, t: torch.Tensor) -> torch.Tensor:
+    """Images (B, H, W, 3) -> (B, 3, H, W) contiguous; the kernels read NCHW."""
+    if isinstance(key, tuple) and key[0] in ("color", "color_aug"):
+        return t.permute(0, 3, 1, 2).contiguous()
+    return t
+
+
 class Trainer:
-    """Model + optimizer + the ``fine_tune`` train step.
+    """Model, the optimizer of the current phase, the step and the curriculum.
 
     :param cfg: the run's config (``weights_init`` must be ``"scratch"``: the
         imagenet backbones are not in the repository)
     :param device: ``"cuda"`` (default) or ``"cpu"``
-    :param steps_per_epoch: steps of one epoch, for the loss-weight ramp and
-        the learning-rate schedule (defaults to ``cfg.epoch_size``, the
-        length of the JAX package's epoch loader)
+    :param phase: the phase :meth:`train_step` runs until :meth:`train` or
+        :meth:`setup_phase` sets another
+    :param steps_per_epoch: steps of one epoch of that phase, for the
+        loss-weight ramp and the learning-rate schedule (defaults to
+        ``cfg.epoch_size``; :meth:`run_phase` uses its loader's length)
     :param drop_path_rate: LiteMono stochastic depth (0.4 in the reference)
     """
 
-    phase = "fine_tune"  # the one phase ported so far
-
-    def __init__(self, cfg: DynamoConfig, device: Optional[str] = None, steps_per_epoch: Optional[int] = None,
-                 drop_path_rate: float = 0.4):
+    def __init__(self, cfg: DynamoConfig, device: Optional[str] = None, phase: str = "fine_tune",
+                 steps_per_epoch: Optional[int] = None, drop_path_rate: float = 0.4):
         cfg.validate()
         if cfg.weights_init != "scratch":
             raise NotImplementedError("only weights_init='scratch' is ported: the pretrained backbones are not in the repository")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError("only compute_dtype='float32' is ported")
+        if cfg.num_devices > 1:
+            raise NotImplementedError("multi-GPU training is not ported: pass --num_devices 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         # The JAX package runs float32 models at Precision.HIGHEST; on the
@@ -67,18 +95,36 @@ class Trainer:
         # These are process-wide switches.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-
-        self.bool_cmp, self.bool_mask, self.networks, lr_factor = PHASE_SPEC[self.phase]
-        self.automask = self.phase == "disp_init"
-        self.steps_per_epoch = steps_per_epoch or max(cfg.epoch_size, 1)
-        self.base_lr = cfg.learning_rate * lr_factor
+        self.B, self.H, self.W = cfg.batch_size, cfg.height, cfg.width
+        self.log_path = osp.join(cfg.log_dir, cfg.model_name)
 
         torch.manual_seed(cfg.seed)
         self.model = DynamoModel(
             depth_model=cfg.depth_model, encoder_num_layers=cfg.encoder_num_layers,
             scales=tuple(cfg.scales), frame_ids=tuple(cfg.frame_ids), drop_path_rate=drop_path_rate,
         ).to(self.device)
+        if cfg.load_ckpt:
+            self.load_model()
+        # Drop-path masks, RANSAC hypotheses and the automask noise.
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._copy_stream = None
+        self.g_step = 0
+        # One entry per log_time / log_scalars call: what a run reports.
+        self.history: List[Dict] = []
+        self.setup_phase(phase, steps_per_epoch or max(cfg.epoch_size, 1))
+
+    # ------------------------------------------------------------ phases
+
+    def setup_phase(self, phase: str, steps_per_epoch: int) -> None:
+        """Freeze the modules outside the phase's networks and start a fresh
+        Adam over the others."""
+        self.phase = phase
+        self.bool_cmp, self.bool_mask, self.networks, lr_factor = PHASE_SPEC[phase]
+        self.automask = phase == "disp_init"
+        self.steps_per_epoch = steps_per_epoch
+        self.base_lr = self.cfg.learning_rate * lr_factor
         self.trainable_modules = modules_for_networks(self.networks)
+        self.model.zero_grad(set_to_none=True)
         for name in MODULE_NAMES:
             getattr(self.model, name).requires_grad_(name in self.trainable_modules)
         params = [p for p in self.model.parameters() if p.requires_grad]
@@ -90,6 +136,8 @@ class Trainer:
         epoch = count // max(self.steps_per_epoch, 1)
         return self.base_lr * (0.5 ** (epoch // self.cfg.scheduler_step_size))
 
+    # -------------------------------------------------------------- data side
+
     def process_inputs_device(self, inputs: Dict) -> Dict:
         """Colour pyramid ('color', 0, s) by recursive antialiased bicubic
         halving with clamping (Trainer.py:729-734), on the device."""
@@ -97,23 +145,72 @@ class Trainer:
         for scale in self.cfg.scales:
             if scale == 0:
                 continue
-            h, w = self.cfg.height // (2 ** scale), self.cfg.width // (2 ** scale)
+            h, w = self.H // (2 ** scale), self.W // (2 ** scale)
             out[("color", 0, scale)] = resize_bicubic_aa(out[("color", 0, scale - 1)], (h, w))
         return out
 
-    def to_device(self, batch: Dict) -> Dict:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+    def _copy_async(self, batch: Dict):
+        """Queue the copy of a host batch to the device; -> (tensors, event
+        that marks the copy done, or None where nothing is asynchronous)."""
+        batch = {k: v for k, v in batch.items() if k not in _HOST_ONLY}
+        if self.device.type != "cuda":
+            return {k: _to_layout(k, torch.as_tensor(np.asarray(v))) for k, v in batch.items()}, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        out = {}
+        with torch.cuda.stream(self._copy_stream):
+            for k, v in batch.items():
+                host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                out[k] = _to_layout(k, host.to(self.device, non_blocking=True))
+        done = torch.cuda.Event()
+        done.record(self._copy_stream)
+        return out, done
 
-    def train_step(self, batch: Dict, generator: torch.Generator, step: int) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch`` (NCHW tensors on the device).
-        ``generator`` (on the device) draws drop-path masks and RANSAC
-        hypotheses; ``step`` is the step within the phase (loss-weight ramp).
-        Returns the detached losses dict of ``compute_losses``."""
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_at(self.opt_steps)
-        self.optimizer.zero_grad(set_to_none=True)
-        inputs = self.process_inputs_device(batch)
-        self.model.train()
+    def _ready(self, tensors: Dict, done) -> Dict:
+        """Make the current stream wait for the copy, and keep the copy
+        stream's memory from being reused while the current stream reads it."""
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in tensors.values():
+                t.record_stream(stream)
+        return tensors
+
+    def to_device(self, batch: Dict) -> Dict:
+        """A host batch (numpy; images (B, H, W, 3), as the loader and
+        ``synthetic_batch`` give them) -> the step's tensors on the device,
+        images (B, 3, H, W) contiguous, host-only keys dropped."""
+        return self._ready(*self._copy_async(batch))
+
+    def _prefetch(self, loader):
+        """Device batches from ``loader``, each copied while the step before
+        it runs: pinned host memory, a copy stream one batch ahead."""
+        pending = None
+        for batch in loader:
+            copied = self._copy_async(batch)
+            if pending is not None:
+                yield self._ready(*pending)
+            pending = copied
+        if pending is not None:
+            yield self._ready(*pending)
+
+    def _make_train_loader(self, epoch_seed: int) -> BatchLoader:
+        filenames = sample_epoch_filenames(read_split(self.cfg.split, "train"), self.cfg.epoch_size, self.B,
+                                           seed=epoch_seed)
+        return BatchLoader(
+            make_dataset(self.cfg, filenames, is_train=True), self.B, shuffle=self.cfg.epoch_size <= 0, drop_last=True,
+            num_workers=self.cfg.num_workers, seed=self.cfg.seed, prefetch=self.cfg.prefetch_depth,
+        )
+
+    def _make_val_loader(self) -> BatchLoader:
+        which = "val" if split_exists(self.cfg.split, "val") else "train"
+        ds = make_dataset(self.cfg, read_split(self.cfg.split, which), load_depth=True)
+        return BatchLoader(ds, self.B, shuffle=True, drop_last=True, num_workers=self.cfg.num_workers,
+                           seed=self.cfg.seed + 1)
+
+    # ------------------------------------------------------------ train step
+
+    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int):
         outputs = self.model(inputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, generator=generator)
         view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
                        automask=self.automask)
@@ -122,7 +219,183 @@ class Trainer:
             bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, automask=self.automask,
             trainable_networks=self.networks, step_in_phase=step, steps_per_epoch=self.steps_per_epoch,
         )
+        return outputs, losses
+
+    def train_step(self, batch: Dict, generator: torch.Generator, step: int) -> Dict[str, torch.Tensor]:
+        """One optimizer step of the current phase on ``batch`` (tensors on
+        the device, from :meth:`to_device`). ``generator`` (on the device)
+        draws drop-path masks, RANSAC hypotheses and the automask noise;
+        ``step`` is the step within the phase (loss-weight ramp). Returns
+        the detached losses dict of ``compute_losses``."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_at(self.opt_steps)
+        self.optimizer.zero_grad(set_to_none=True)
+        self.model.train()
+        _, losses = self._forward_losses(self.process_inputs_device(batch), generator, step)
         losses["loss"].backward()
         self.optimizer.step()
         self.opt_steps += 1
         return {k: v.detach() for k, v in losses.items()}
+
+    # -------------------------------------------------------------- training
+
+    def train(self):
+        """Run the four-phase curriculum (Trainer.py:90-106)."""
+        self.setup_logging()
+        self.g_step = 0
+        for phase_i, phase in enumerate(PHASES):
+            num_epoch = self.cfg.epoch_schedules[phase_i]
+            print(f"======== {phase.upper()} - Num Epochs={num_epoch} ========")
+            if num_epoch > 0:
+                self.run_phase(phase, num_epoch)
+            print(f"======== {phase.upper()} - Num Epochs={num_epoch} ========\n")
+
+    def run_phase(self, phase: str, num_epoch: int):
+        cfg = self.cfg
+        steps_per_epoch = len(self._make_train_loader(epoch_seed=cfg.seed))
+        self.setup_phase(phase, steps_per_epoch)
+        if cfg.resume_optim and cfg.load_ckpt:
+            # The reference saves adam.pth but never reloads it
+            # (Trainer.py:706-707); the JAX package restores it when asked.
+            self.load_optimizer(osp.expanduser(cfg.load_ckpt))
+
+        self.step = 0
+        self.num_total_steps = steps_per_epoch * num_epoch
+        self.start_time = time.time()
+        self._val_iter = None
+        prof = None
+        if cfg.profile:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+        try:
+            for epoch in range(num_epoch):
+                self.epoch = epoch
+                print()
+                loader = self._make_train_loader(epoch_seed=cfg.seed + 1000 * epoch + 101 * PHASES.index(phase))
+                loader.set_epoch(epoch)
+                data_t, comp_t = 0.0, 0.0
+                t0 = time.time()
+                for batch_idx, batch in enumerate(self._prefetch(loader)):
+                    data_t += time.time() - t0
+                    t0 = time.time()
+                    losses = self.train_step(batch, self.generator, self.step)
+                    late_freq = 10 * cfg.log_frequency
+                    if (batch_idx % cfg.log_frequency == 0 and self.step < late_freq) or self.step % late_freq == 0:
+                        loss_val = float(losses["loss"])
+                        self.log_time(batch_idx, max(time.time() - t0, 1e-9), loss_val, data_t, comp_t)
+                        data_t, comp_t = 0.0, 0.0
+                        self.log_scalars("train", losses)
+                        self.val()
+                    comp_t += time.time() - t0
+                    self.g_step += 1
+                    self.step += 1
+                    t0 = time.time()
+                if (epoch + 1) % cfg.save_frequency == 0 or epoch == num_epoch - 1:
+                    self.save_model(phase, epoch)
+        finally:
+            self._val_iter = None
+            if prof is not None:
+                prof.stop()
+                prof.export_chrome_trace(osp.join(join_dir(self.log_path, "traces", phase), "trace.json"))
+
+    def val(self):
+        """Score one validation batch for training monitoring (Trainer.py:175-195;
+        val is never used for model selection): eval mode, no gradients, the
+        losses and, where the batch has LiDAR points, the depth metrics."""
+        try:
+            if self._val_iter is None:
+                self._val_loader = self._make_val_loader()
+                self._val_iter = iter(self._val_loader)
+            try:
+                batch = next(self._val_iter)
+            except StopIteration:
+                self._val_iter = iter(self._val_loader)
+                batch = next(self._val_iter)
+        except (FileNotFoundError, StopIteration):
+            return  # no validation data
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                outputs, losses = self._forward_losses(
+                    self.process_inputs_device(self.to_device(batch)), self.generator, self.step)
+                if "depth_gt" in batch:
+                    losses.update(self.depth_metrics(batch, outputs))
+        finally:
+            self.model.train()
+        self.log_scalars("val", losses)
+
+    def depth_metrics(self, inputs: Dict, outputs: Dict) -> Dict:
+        """Sparse-point depth metrics of ``outputs[('disp_scaled', 0, 0)]``
+        against the host batch's LiDAR points, on the device."""
+        cfg = self.cfg
+        return depth_metrics(
+            outputs[("disp_scaled", 0, 0)], inputs["depth_gt"], inputs["depth_valid"], inputs["gt_dim"],
+            cfg.eval_img_bound, min_depth=cfg.eval_min_depth, max_depth=float(cfg.eval_max_depth),
+        )
+
+    # -------------------------------------------------------------------- io
+
+    def save_model(self, phase: str, epoch: int):
+        """``models/<phase>_<epoch:02>/``: the seven module files, ``adam.pth``
+        and the run's ``opt.json``."""
+        folder = join_dir(self.log_path, "models", f"{phase}_{epoch:02}")
+        ckpt.save_model(self.model, folder, height=self.H, width=self.W, verbose=True)
+        ckpt.save_opt_state(self.optimizer, folder)
+        self.cfg.save(osp.join(folder, "opt.json"))
+
+    def load_model(self):
+        path = osp.expanduser(self.cfg.load_ckpt)
+        if not osp.isdir(path):
+            raise FileNotFoundError(f"Cannot find checkpoint folder {path}")
+        print(f"loading model from folder {path}")
+        ckpt.load_model(self.model, path, height=self.H, width=self.W)
+
+    def load_optimizer(self, folder: str) -> None:
+        """Restore the folder's ``adam.pth`` into the current phase's Adam,
+        and with it the step count that drives the learning-rate schedule."""
+        if ckpt.load_opt_state(self.optimizer, folder):
+            self.opt_steps = max((int(s["step"]) for s in self.optimizer.state.values()), default=0)
+            print(f"restored optimizer state from {folder}")
+
+    def save_opt(self):
+        models_dir = join_dir(self.log_path, "models")
+        if self.cfg.print_opt:
+            for k, v in self.cfg.to_dict().items():
+                print("{:30}{}".format(k + ":", v))
+        self.cfg.save(osp.join(models_dir, "opt.json"))
+
+    # --------------------------------------------------------------- logging
+
+    def setup_logging(self):
+        self.save_opt()
+        if self.cfg.no_train_vis:
+            return
+        try:
+            import wandb  # noqa: F401
+        except ImportError:
+            return  # nothing to log to, as in the JAX package
+        raise NotImplementedError(
+            "training visualisation to wandb is not ported (it needs utils/vis.py): pass --no_train_vis")
+
+    def log_scalars(self, mode: str, losses: Dict):
+        """Keep the 0-d entries of ``losses`` as floats in :attr:`history`."""
+        scalars = {k: v for k, v in losses.items() if torch.is_tensor(v) and v.ndim == 0}
+        values = torch.stack([v.float() for v in scalars.values()]).tolist() if scalars else []
+        self.history.append({"mode": mode, "phase": self.phase, "g_step": self.g_step,
+                             "scalars": dict(zip(scalars, values))})
+
+    def log_time(self, batch_idx, duration, loss, data_time, gpu_time):
+        samples_per_sec = self.B / duration
+        time_sofar = time.time() - self.start_time
+        left = (self.num_total_steps / self.step - 1.0) * time_sofar if self.step > 0 else 0
+        self.history.append({"mode": "time", "phase": self.phase, "g_step": self.g_step, "epoch": self.epoch,
+                             "batch": batch_idx, "loss": loss, "examples_per_s": samples_per_sec,
+                             "data_s": data_time, "compute_s": gpu_time})
+        print(
+            f"epoch {self.epoch:>3} | batch {batch_idx:>6} | examples/s: {samples_per_sec:5.1f} "
+            f"| loss: {loss:.5f} | time elapsed: {sec_to_hm_str(time_sofar)} "
+            f"| time left: {sec_to_hm_str(left)} | CPU/GPU time: {data_time:0.1f}s/{gpu_time:0.1f}s"
+        )

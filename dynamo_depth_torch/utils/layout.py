@@ -1,10 +1,9 @@
-"""NHWC <-> NCHW for tensors and whole dicts.
+"""NHWC <-> NCHW for tensors and numpy arrays.
 
 The JAX package keeps images channels-last; the port keeps them
 channels-first. Tests convert at the boundary with these helpers. Sample
 grids ``(B, H, W, 2)`` and point clouds ``(B, N, 3)`` are coordinate lists,
-not images, and keep their layout in both packages: convert dicts that
-hold them key by key.
+not images, and keep their layout in both packages.
 """
 
 from __future__ import annotations
@@ -25,13 +24,3 @@ def nchw_to_nhwc(x):
     if isinstance(x, torch.Tensor):
         return x.permute(0, 2, 3, 1).contiguous()
     return np.ascontiguousarray(np.transpose(np.asarray(x), (0, 2, 3, 1)))
-
-
-def dict_to_nchw(d):
-    """Convert every 4-D entry of ``d`` (an image batch) to NCHW."""
-    return {k: (nhwc_to_nchw(v) if np.ndim(v) == 4 else v) for k, v in d.items()}
-
-
-def dict_to_nhwc(d):
-    """Convert every 4-D entry of ``d`` (an image batch) to NHWC."""
-    return {k: (nchw_to_nhwc(v) if np.ndim(v) == 4 else v) for k, v in d.items()}

@@ -65,6 +65,18 @@ def test_trainer_needs_the_card_unless_asked_for_cpu(monkeypatch):
     assert trainer_mod.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_the_entry_point_needs_the_card_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from dynamo_depth_torch import train as train_entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(trainer_mod.Trainer, "train", lambda self: pytest.fail("trained without a card"))
+    argv = ["-d", "kitti", "--height", "32", "--width", "64", "--weights_init", "scratch", "--log_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_entry.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_entry.main(argv, device="cuda")
+
+
 def test_trainer_refuses_what_is_not_ported():
     cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1)  # weights_init="pretrained"
     with pytest.raises(NotImplementedError):
@@ -73,6 +85,21 @@ def test_trainer_refuses_what_is_not_ported():
                        compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError):
         trainer_mod.Trainer(cfg, device="cpu")
+    cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1, weights_init="scratch", num_devices=2)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        trainer_mod.Trainer(cfg, device="cpu")
+
+
+def test_train_visualisation_is_refused_where_wandb_imports(monkeypatch, tmp_path):
+    cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1, weights_init="scratch",
+                       log_dir=str(tmp_path), print_opt=False)
+    trainer = trainer_mod.Trainer(cfg, device="cpu")
+    monkeypatch.setitem(sys.modules, "wandb", object())
+    with pytest.raises(NotImplementedError, match="--no_train_vis"):
+        trainer.setup_logging()
+    trainer.cfg.no_train_vis = True
+    trainer.setup_logging()
+    assert (tmp_path / cfg.model_name / "models" / "opt.json").exists()
 
 
 def test_cpu_tensors_take_the_plain_path():

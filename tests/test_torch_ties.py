@@ -128,3 +128,24 @@ def test_bce_with_logits_at_zero_logits(rng, target):
     out.backward()
     np.testing.assert_allclose(out.item(), float(ref), rtol=1e-6)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(d_ref), atol=1e-7, rtol=1e-6)
+
+
+def test_c_consistency_where_residual_flow_is_zero(rng):
+    # Only the consistency term: no ramp, no smoothness of the flow.
+    jcfg, tcfg = _configs(weight_ramp=[], g_c_smooth=0.0)
+    residual = rng.randn(B, H, W, 3).astype(np.float32)
+    residual[rng.rand(B, H, W, 3) < 0.4] = 0.0
+    outputs = {("disp", 0, 0): rng.rand(B, H, W, 1).astype(np.float32)}
+    for f in (-1, 1):
+        outputs[("color", f, 0)] = rng.rand(B, H, W, 3).astype(np.float32)
+        outputs[("motion_mask", f, 0)] = rng.rand(B, H, W, 1).astype(np.float32)
+        outputs[("complete_flow", f, 0)] = rng.randn(B, H, W, 3).astype(np.float32)
+        outputs[("residual_flow", f, 0)] = residual if f == -1 else -residual
+    inputs = {("color", 0, 0): rng.rand(B, H, W, 3).astype(np.float32)}
+    ref, got = _loss_grads(
+        jcfg, tcfg, inputs, outputs, [("residual_flow", -1, 0), ("residual_flow", 1, 0)],
+        bool_CmpFlow=True, bool_MotMask=True, automask=False, trainable_networks=("CmpFlow",),
+    )
+    for r, g in zip(ref, got):
+        assert np.abs(r[residual == 0]).max() > 0
+        np.testing.assert_allclose(g, r, atol=1e-9, rtol=1e-6)

@@ -1,13 +1,16 @@
-"""One ``fine_tune`` step of the port against the JAX package, on the CPU.
+"""One step of each curriculum phase of the port against the JAX package,
+on the CPU.
 
 LiteMono at 32x64, batch 2, from the same weights (JAX init, carried across
 by ``load_jax_variables``) and the same synthetic batch. Drop-path is off on
 both sides (JAX: ``DropPath.__call__`` patched to the identity; port:
-``drop_path_rate=0``). The RANSAC hypotheses are drawn on the JAX side
-exactly as ``compute_losses`` draws them and handed to the port's draw
-function. The JAX reference is built without ``Trainer``: one jitted
-``value_and_grad`` over model apply, ``view_synthesis`` and
-``compute_losses``, then ``optax.adam``, run once for the whole module.
+``drop_path_rate=0``). The RANSAC hypotheses and the automask noise are
+drawn on the JAX side exactly as ``compute_losses`` draws them and handed to
+the port's draw functions. The JAX reference is built without ``Trainer``:
+one jitted ``value_and_grad`` over the trainable modules' parameters of
+model apply, ``view_synthesis`` and ``compute_losses``, then ``optax.adam``,
+run once per phase. This file runs ``fine_tune`` and ``disp_init``;
+``test_torch_phase_steps.py`` runs the same tests on the other two phases.
 """
 
 import types
@@ -25,24 +28,27 @@ from dynamo_depth_torch.models.convert import load_jax_variables
 from dynamo_depth_torch.models.model import MODULE_NAMES
 from dynamo_depth_torch.ops import ground_plane as t_ground_plane
 from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+from dynamo_depth_torch.training import losses as t_losses
 from dynamo_depth_torch.training.synthetic import synthetic_batch
 from dynamo_depth_torch.training.trainer import Trainer
-from dynamo_depth_torch.utils.layout import dict_to_nhwc
 from dynamo_depth_tpu.config import DynamoConfig as JConfig
 from dynamo_depth_tpu.models import layers as j_layers
 from dynamo_depth_tpu.models.convert import convert_module
-from dynamo_depth_tpu.models.model import DynamoModel
+from dynamo_depth_tpu.models.model import DynamoModel, modules_for_networks
 from dynamo_depth_tpu.ops.warp import resize_bicubic_aa
 from dynamo_depth_tpu.training.losses import compute_losses, view_synthesis
 from dynamo_depth_tpu.training.trainer import PHASE_SPEC
+from torch_test_threads import two_torch_threads  # noqa: F401
 
 B, H, W = 2, 32, 64
 STEP, STEPS_PER_EPOCH = 5, 100  # ramp = 3 * 5 / 100: the ramped terms count
 KW = dict(dataset="kitti", height=H, width=W, batch_size=B, weights_init="scratch")
 
 
-def _jax_step(cfg, variables, batch, rng):
-    bool_cmp, bool_mask, networks, lr_factor = PHASE_SPEC["fine_tune"]
+def _jax_step(cfg, phase, variables, batch, rng):
+    bool_cmp, bool_mask, networks, lr_factor = PHASE_SPEC[phase]
+    automask = phase == "disp_init"
+    trainable = modules_for_networks(networks)
     model = DynamoModel(depth_model="litemono", scales=tuple(cfg.scales), frame_ids=tuple(cfg.frame_ids))
 
     def pyramid(inputs):  # Trainer.process_inputs_device
@@ -51,48 +57,58 @@ def _jax_step(cfg, variables, batch, rng):
             out[("color", 0, s)] = resize_bicubic_aa(out[("color", 0, s - 1)], (H // 2 ** s, W // 2 ** s))
         return out
 
-    def loss_fn(params, batch_stats, batch, rng):
+    def loss_fn(t_params, f_params, batch_stats, batch, rng):
         inputs = pyramid(batch)
         rng_drop, rng_loss = jax.random.split(rng)
         outputs, mut = model.apply(
-            {"params": params, "batch_stats": batch_stats}, inputs, train=True,
+            {"params": {**f_params, **t_params}, "batch_stats": batch_stats}, inputs, train=True,
             bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, mutable=["batch_stats"], rngs={"droppath": rng_drop},
         )
-        view_synthesis(cfg, inputs, outputs, bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, automask=False)
+        view_synthesis(cfg, inputs, outputs, bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, automask=automask)
         losses = compute_losses(
-            cfg, inputs, outputs, rng_loss, bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, automask=False,
+            cfg, inputs, outputs, rng_loss, bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, automask=automask,
             trainable_networks=networks, step_in_phase=STEP, steps_per_epoch=STEPS_PER_EPOCH,
         )
         return losses["loss"], (losses, mut["batch_stats"])
 
+    # The trainer's partition: gradients of the trainable modules only.
+    t_params = {k: v for k, v in variables["params"].items() if k in trainable}
+    f_params = {k: v for k, v in variables["params"].items() if k not in trainable}
     (_, (losses, new_bs)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        variables["params"], variables["batch_stats"], batch, rng
+        t_params, f_params, variables["batch_stats"], batch, rng
     )
     tx = optax.adam(cfg.learning_rate * lr_factor)
-    updates, _ = tx.update(grads, tx.init(variables["params"]), variables["params"])
-    new_params = optax.apply_updates(variables["params"], updates)
+    updates, _ = tx.update(grads, tx.init(t_params), t_params)
+    new_params = {**f_params, **optax.apply_updates(t_params, updates)}
     return jax.tree.map(np.asarray, (losses, grads, new_params, new_bs))
 
 
-def _ransac_indices(cfg, rng):
-    """The indices compute_losses draws: split(rng_loss)[1] folded with the
-    scale, uniform over the candidate rows of that scale's disparity."""
+def _jax_draws(cfg, phase, rng):
+    """What compute_losses draws from split(rng)[1] = rng_loss, split again
+    into (rng_noise, rng_ground), each folded with the scale: the automask
+    noise (disp_init; NHWC, handed to the port as (B, F, H, W)) and the
+    RANSAC indices, uniform over the candidate rows of that scale's
+    disparity (where the ground term runs)."""
+    bool_cmp, bool_mask, networks, _ = PHASE_SPEC[phase]
     _, rng_loss = jax.random.split(rng)
-    _, rng_ground = jax.random.split(rng_loss)
-    out = []
+    rng_noise, rng_ground = jax.random.split(rng_loss)
+    noise, indices = [], []
     for s in cfg.scales:
-        h, w = H // 2 ** s, W // 2 ** s
-        n = int(cfg.gp_prior * h) * w
-        key = jax.random.fold_in(rng_ground, s)
-        out.append(np.asarray(jax.random.randint(key, (B, cfg.gp_np_per_it * cfg.gp_max_it), 0, n)))
-    return out
+        if phase == "disp_init":
+            shape = (B, H, W, len(cfg.frame_ids) - 1)
+            noise.append(np.asarray(jax.random.normal(jax.random.fold_in(rng_noise, s), shape)).transpose(0, 3, 1, 2))
+        if "Depth" in networks and bool_mask:
+            h, w = H // 2 ** s, W // 2 ** s
+            n = int(cfg.gp_prior * h) * w
+            key = jax.random.fold_in(rng_ground, s)
+            indices.append(np.asarray(jax.random.randint(key, (B, cfg.gp_np_per_it * cfg.gp_max_it), 0, n)))
+    return noise, indices
 
 
-@pytest.fixture(scope="module")
-def step_results():
+def run_step(phase):
+    """One step of ``phase`` in both packages from the same weights and batch."""
     jcfg, tcfg = JConfig(**KW), TConfig(**KW)
     batch = synthetic_batch(tcfg, B, H, W)
-    batch_nhwc = dict_to_nhwc(batch)
     rng = jax.random.PRNGKey(7)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_layers.DropPath, "__call__", lambda self, x, train=False: x)
@@ -102,20 +118,28 @@ def step_results():
             jax.random.PRNGKey(0)
         )
         variables = jax.tree.map(np.asarray, dict(variables))
-        jax_out = _jax_step(jcfg, variables, jax.tree.map(jnp.asarray, batch_nhwc), rng)
+        jax_out = _jax_step(jcfg, phase, variables, jax.tree.map(jnp.asarray, batch), rng)
 
-    trainer = Trainer(tcfg, device="cpu", steps_per_epoch=STEPS_PER_EPOCH, drop_path_rate=0.0)
+    trainer = Trainer(tcfg, device="cpu", phase=phase, steps_per_epoch=STEPS_PER_EPOCH, drop_path_rate=0.0)
     load_jax_variables(trainer.model, variables["params"], variables["batch_stats"], tcfg)
-    indices = _ransac_indices(jcfg, rng)
+    noise, indices = _jax_draws(jcfg, phase, rng)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_ground_plane, "draw_sample_idx", lambda *a, **k: torch.tensor(indices.pop(0)))
+        mp.setattr(t_losses, "draw_automask_noise", lambda *a, **k: torch.tensor(noise.pop(0)))
         reset_launch_counts()
         losses = trainer.train_step(trainer.to_device(batch), torch.Generator().manual_seed(0), STEP)
         counts = launch_counts()
-    assert not indices, "every scale drew its RANSAC hypotheses once"
+    assert not indices and not noise, "every scale drew its RANSAC hypotheses and automask noise once"
     return types.SimpleNamespace(
-        cfg=tcfg, jax=jax_out, losses=losses, trainer=trainer, variables=variables, counts=counts
+        phase=phase, cfg=tcfg, jax=jax_out, losses=losses, trainer=trainer, variables=variables, counts=counts
     )
+
+
+# The other two phases run in test_torch_phase_steps.py, so that two test
+# workers compile the JAX steps at once.
+@pytest.fixture(scope="module", params=["fine_tune", "disp_init"])
+def step_results(request):
+    return run_step(request.param)
 
 
 def _port_tree(trainer, module_name, cfg, grads=False):
@@ -136,10 +160,19 @@ def _leaves(tree):
 def test_synthetic_batch_matches_graft_entry():
     cfg = TConfig(**KW)
     ref = __graft_entry__._synthetic_batch(cfg, B, H, W)
-    ours = dict_to_nhwc(synthetic_batch(cfg, B, H, W))
+    ours = synthetic_batch(cfg, B, H, W)
     assert ref.keys() == ours.keys()
     for k in ref:
         np.testing.assert_array_equal(ours[k], ref[k], err_msg=str(k))
+
+
+# The terms each phase computes (the others stay 0 in both packages).
+ACTIVE = {
+    "disp_init": ("p_photo", "d_smooth"),
+    "motion_init": ("p_photo", "c_smooth"),
+    "mask_init": ("p_photo", "c_smooth", "c_consistency", "m_sparsity", "m_smooth"),
+    "fine_tune": ("p_photo", "d_smooth", "d_ground", "c_smooth", "c_consistency", "m_sparsity", "m_smooth"),
+}
 
 
 def test_losses_match(step_results):
@@ -150,12 +183,16 @@ def test_losses_match(step_results):
         # Every term is a mean over the batch of float32 maps that went
         # through ~60 layers of convolutions on each side: ~1e-5 relative.
         np.testing.assert_allclose(got[k], float(ref[k]), rtol=1e-4, atol=1e-7, err_msg=k)
-    assert got["loss_term/d_ground"] > 0 and got["loss_term/m_sparsity"] > 0
+    for term in ("p_photo", "d_smooth", "d_ground", "c_smooth", "c_consistency", "m_sparsity", "m_smooth"):
+        assert (got[f"loss_term/{term}"] > 0) == (term in ACTIVE[step_results.phase]), term
 
 
 @pytest.mark.parametrize("module_name", MODULE_NAMES)
 def test_gradients_match(step_results, module_name):
     r = step_results
+    if module_name not in r.jax[1]:  # frozen in this phase: no gradient
+        assert all(p.grad is None for p in getattr(r.trainer.model, module_name).parameters()), module_name
+        return
     port, _ = _port_tree(r.trainer, module_name, r.cfg, grads=True)
     ref = _leaves(r.jax[1][module_name])
     got = _leaves(port)
@@ -171,17 +208,30 @@ def test_gradients_match(step_results, module_name):
         assert np.max(np.abs(got[k] - ref[k])) <= 1e-2 * scale + 1e-12, (module_name, k)
 
 
+# At random init motion_init's motion-encoder gradient is ill-conditioned:
+# scaling the input images by 1 + 1e-7 moves it by 3.7e-4 of its norm (7.3e-5
+# in fine_tune), so fewer of its entries agree to 1e-3 across two packages
+# that round differently (0.44 of one bias vector at least).
+MIN_AGREE = {("motion_init", "motion_enc"): 0.4}
+
+
 @pytest.mark.parametrize("module_name", MODULE_NAMES)
 def test_params_after_adam_match(step_results, module_name):
     r = step_results
     port, _ = _port_tree(r.trainer, module_name, r.cfg)
-    port_grad, _ = _port_tree(r.trainer, module_name, r.cfg, grads=True)
     ref_new = _leaves(r.jax[2][module_name])
-    ref_grad = _leaves(r.jax[1][module_name])
     old = _leaves(r.variables["params"][module_name])
-    got, got_grad = _leaves(port), _leaves(port_grad)
-    lr = r.cfg.learning_rate * 0.5
+    got = _leaves(port)
     assert ref_new.keys() == got.keys()
+    if module_name not in r.jax[1]:  # frozen in this phase: not updated, bit for bit
+        for k in ref_new:
+            np.testing.assert_array_equal(got[k], old[k], err_msg=str(k))
+            np.testing.assert_array_equal(ref_new[k], old[k], err_msg=str(k))
+        return
+    port_grad, _ = _port_tree(r.trainer, module_name, r.cfg, grads=True)
+    ref_grad = _leaves(r.jax[1][module_name])
+    got_grad = _leaves(port_grad)
+    lr = r.cfg.learning_rate * PHASE_SPEC[r.phase][3]
     for k in ref_new:
         d_ref = ref_new[k] - old[k]
         d_got = got[k] - old[k]
@@ -196,15 +246,18 @@ def test_params_after_adam_match(step_results, module_name):
         # round-off decides its sign: the gradients themselves are held in
         # test_gradients_match).
         agree = np.abs(g - ref_grad[k]) <= 1e-3 * np.abs(ref_grad[k])
-        assert agree.mean() > 0.5, (k, agree.mean())
+        assert agree.mean() > MIN_AGREE.get((r.phase, module_name), 0.5), (k, agree.mean())
         assert np.all(np.abs(d_got - d_ref)[agree] <= tol[agree]), k
 
 
 def test_batch_stats_match(step_results):
+    # Frozen modules' statistics follow the batch too, in both packages; a
+    # module the phase does not run (the motion encoder in disp_init) keeps
+    # its initial statistics.
     r = step_results
     for module_name in ("depth_enc", "pose_enc", "motion_enc"):
         _, stats = _port_tree(r.trainer, module_name, r.cfg)
-        ref = _leaves(r.jax[3][module_name])
+        ref = _leaves(r.jax[3].get(module_name, r.variables["batch_stats"][module_name]))
         got = _leaves(stats)
         assert ref.keys() == got.keys()
         for k in ref:
