@@ -43,7 +43,20 @@ Phases (any failure exits non-zero, nothing is caught):
    data-wait and compute time of each phase, peak memory, four checkpoint
    folders in the reference's layout, ``fine_tune_00`` loaded into a fresh
    trainer with the same state dict, and one more ``fine_tune`` step from it
-   with ``--load_ckpt ... --resume_optim``.
+   with ``--load_ckpt ... --resume_optim``;
+8. the eval path from ``fine_tune_00`` at 192x640, batch 3, through each
+   entry point's ``main(..., device=...)``: depth on ``tiny_kitti`` (Part 1)
+   and ``tiny_waymo`` (Parts 1 and 2), motion segmentation on ``tiny_waymo``
+   (npz and FP tally), odometry on an 8-frame segment built under
+   ``build/chip_smoke/data``, visualize on ``tiny_waymo`` and the quick demo
+   on ``tiny_nuscenes``'s non-edge frame; all of it again on the CPU, each
+   record of the card's held against the CPU's (depth tables to 0.001,
+   tp/fp/fn to 1e-3 of the pixels, precision/recall/f1 to 1e-3, thresholds
+   and FP tally equal, odometry to 1e-4 relative, frames within one level on
+   99.9% of the pixels); no launch of the four kernels during the card's
+   run, its peak memory, the plot files written and not written, and
+   ``Trainer.predict``'s device ms per batch for each of its three flag
+   settings (median of 5 after 2 warm-ups).
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -52,6 +65,7 @@ Prints one ``{"kernels": [...]}`` line, then, last, the
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -244,7 +258,174 @@ def run_curriculum(smi):
     print(f"  one more fine_tune step from fine_tune_00 with --resume_optim: Adam's count 3 -> 4, "
           f"loss {losses[0]:.5f}")
     summary["resumed_loss"] = losses[0]
-    return {"launches": launches, "per_step": per_step, "summary": summary}
+    return {"launches": launches, "per_step": per_step, "summary": summary, "folder": last, "work": work}
+
+
+ODOM_SEG, ODOM_FRAMES = "val/segment-0000000001_eight_frames", 8
+_FLOAT = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
+
+
+def build_odometry_segment(data_root):
+    """An 8-frame Waymo segment: the vendored fixture's 3 images cycled, its
+    intrinsics, and 8 ground-truth poses from a seeded random drive (the
+    fixture's own 3 frames leave one non-edge frame and no 5-frame track)."""
+    src = Path(__file__).resolve().parent / "assets" / "tiny_waymo" / "val" / "segment-0000000000_tiny_fixture" / "FRONT" / "rgb"
+    dst = data_root / ODOM_SEG / "FRONT"
+    (dst / "rgb" / "downsample").mkdir(parents=True)
+    for i in range(ODOM_FRAMES):
+        shutil.copy(src / "downsample" / f"{i % 3:06}.jpg", dst / "rgb" / "downsample" / f"{i:06}.jpg")
+    shutil.copy(src / "cam.json", dst / "rgb" / "cam.json")
+    rng = np.random.RandomState(8)
+    pose, poses = np.eye(4), []
+    for _ in range(ODOM_FRAMES):
+        step = np.eye(4)
+        a = rng.uniform(-0.02, 0.02)
+        step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        step[:3, 3] = [rng.uniform(-0.1, 0.1), rng.uniform(-0.05, 0.05), rng.uniform(0.5, 1.5)]
+        pose = pose @ step
+        poses.append(pose.reshape(-1))
+    np.savetxt(dst / "odometry.txt", np.array(poses))
+
+
+def run_eval(smi, folder, work):
+    """Phase 8. Every eval CLI and the quick demo from ``folder`` on the card,
+    then on the CPU, with the card's records held against the CPU's. Returns
+    a summary; raises SystemExit on any failure."""
+    import torch
+
+    from dynamo_depth_torch import quick_demo
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.eval import depth, motion_segmentation, odometry, visualize
+    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dynamo_depth_torch.training.synthetic import synthetic_batch
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    root = Path(__file__).resolve().parent
+    assets = root / "assets"
+    kitti_seq, waymo_seg, nusc_scene = ("2011_09_26/2011_09_26_drive_0001_sync",
+                                        "val/segment-0000000000_tiny_fixture", "scenes/scene-0001")
+    splits = {
+        "tiny_kitti": {"test": [f"{kitti_seq} {i} {s}" for i in range(3) for s in "lr"]},
+        "tiny_waymo": {"test": [f"{waymo_seg} {i}" for i in range(3)], "test_mask": [f"{waymo_seg} {i}" for i in range(3)]},
+        "odom": {"test": [f"{ODOM_SEG} {i}" for i in range(ODOM_FRAMES)]},
+    }
+    for name, files in splits.items():
+        (work / "splits" / name).mkdir(parents=True, exist_ok=True)
+        for which, lines in files.items():
+            (work / "splits" / name / f"{which}_files.txt").write_text("".join(line + "\n" for line in lines))
+    build_odometry_segment(work / "data")
+
+    def argv(dataset, data, split, eval_dir):
+        return ["-d", dataset, "--data_path", f"{data}/", "--split", split, "-l", str(folder), "--height", str(H),
+                "--width", str(W), "-b", str(B), "--num_workers", "2", "--eval_dir", str(eval_dir)]
+
+    def run_all(device):
+        out_dir = work / "eval" / device
+        t0 = time.perf_counter()
+        rec = {
+            "depth_kitti": depth.main(argv("kitti", assets / "tiny_kitti", "tiny_kitti", out_dir), device=device),
+            "depth_waymo": depth.main(argv("waymo", assets / "tiny_waymo", "tiny_waymo", out_dir), device=device),
+            "mot_seg": motion_segmentation.main(argv("waymo", assets / "tiny_waymo", "tiny_waymo", out_dir), device=device),
+            "odometry": odometry.main(argv("waymo", work / "data", "odom", out_dir), device=device),
+            "visualize": visualize.main(argv("waymo", assets / "tiny_waymo", "tiny_waymo", out_dir), device=device),
+            "demo": quick_demo.main(["-l", str(folder), "--data_path", f"{assets / 'tiny_nuscenes'}/", "--height", str(H),
+                                     "--width", str(W), "--out", str(out_dir / "demo")],
+                                    device=device, filenames=[f"{nusc_scene} 1"]),
+        }
+        rec["seconds"] = time.perf_counter() - t0
+        return rec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    card = run_all("cuda")
+    torch.cuda.synchronize()
+    launches, peak = launch_counts(), torch.cuda.max_memory_allocated()
+    cpu = run_all("cpu")
+    print(f"  eval path on the card: {card['seconds']:.1f} s, on the CPU: {cpu['seconds']:.1f} s; "
+          f"kernel launches on the card {launches}; peak memory {peak / 2**30:.2f} GiB on {smi}")
+    if any(launches.values()):
+        raise SystemExit(f"the eval path launched kernels of the training path: {launches}")
+
+    def table(path):
+        text = Path(path).read_text().splitlines()
+        rows = {line.split()[0]: [float(x) for x in _FLOAT.findall(line)]
+                for line in text if line.split() and line.split()[0] in ("OVERALL", "BG", "STATIC", "MOT")}
+        return rows, [line for line in text if not line.split() or line.split()[0] not in rows]
+
+    def agree(what, err, tol):
+        print(f"  {what}: card vs CPU {err:.3e} (tolerance {tol:.0e}) {'ok' if err <= tol else 'FAILED'}")
+        if not err <= tol:
+            raise SystemExit(f"{what}: the card's record disagrees with the CPU's")
+
+    for key in ("depth_kitti", "depth_waymo"):
+        (rows_c, text_c), (rows_p, text_p) = table(card[key]["path"]), table(cpu[key]["path"])
+        if text_c != text_p or rows_c.keys() != rows_p.keys() or not all(np.isfinite(v).all() for v in rows_c.values()):
+            raise SystemExit(f"{key}: the tables differ: {rows_c} vs {rows_p}")
+        agree(f"{key} table ({', '.join(rows_c)}; OVERALL abs_rel {rows_c['OVERALL'][0]:.3f})",
+              max(float(np.abs(np.subtract(rows_c[r], rows_p[r])).max()) for r in rows_c), 1e-3 + 1e-9)
+
+    mc, mp = card["mot_seg"], cpu["mot_seg"]
+    zc, zp = np.load(mc["npz"]), np.load(mp["npz"])
+    if not np.array_equal(zc["thrds"], zp["thrds"]) or mc["fp_tally"] != mp["fp_tally"]:
+        raise SystemExit(f"mot_seg: thresholds or FP tally differ: {mc['fp_tally']} vs {mp['fp_tally']}")
+    pixels = 1280 * 1920  # the one non-edge frame at Waymo's full resolution
+    agree("mot_seg tp/fp/fn (fraction of the pixels)",
+          max(float(np.abs(mc[k] - mp[k]).max()) for k in ("tp", "fp", "fn")) / pixels, 1e-3)
+    agree("mot_seg precision/recall/f1", max(float(np.abs(zc[k] - zp[k]).max()) for k in ("precision", "recall", "f1")),
+          1e-3)
+    print(f"  mot_seg FP tally equal: {({str(k): int(v) for k, v in mc['fp_tally'].items()})}")
+
+    oc, op = np.load(card["odometry"]["npy"]), np.load(cpu["odometry"]["npy"])
+    if oc.shape != op.shape or oc.shape[0] == 0:
+        raise SystemExit(f"odometry: records of shape {oc.shape} and {op.shape}")
+    agree(f"odometry ATE and speed ({oc.shape[0]} tracks; relative)",
+          float((np.abs(oc - op) / np.abs(op)).max()), 1e-4)
+
+    def frames_agree(what, fc, fp):
+        if len(fc) != len(fp) or any(a.dtype != np.uint8 or a.shape != b.shape for a, b in zip(fc, fp)):
+            raise SystemExit(f"{what}: frames differ in number, type or shape")
+        diff = np.concatenate([np.abs(a.astype(int) - b.astype(int)).ravel() for a, b in zip(fc, fp)])
+        agree(f"{what} frames ({len(fc)} of {fc[0].shape}; share more than one level apart)",
+              float((diff > 1).mean()), 1e-3)
+
+    for seg, (frames, written) in card["visualize"].items():
+        frames_agree(f"visualize {seg}", frames, cpu["visualize"][seg][0])
+        print(f"  visualize wrote {written}")
+    frames_agree("quick demo", card["demo"], cpu["demo"])
+    print(f"  plot files written: {mc['pdfs'] or 'none'}")
+    for path in mc["missing"]:
+        print(f"  plot file not written (no matplotlib): {path}")
+
+    # predict alone: device ms per batch at the main path's size
+    cfg = DynamoConfig.from_dict(json.loads((folder / "opt.json").read_text()))
+    cfg.load_ckpt = str(folder)
+    trainer = Trainer(cfg)
+    batch = synthetic_batch(cfg, B, H, W)
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_depth_torch.bench.timing import self_device_us
+
+    predict_ms = {}
+    for flags in ((False, False), (True, False), (True, True)):
+        dev_ms, wall_ms = [], []
+        for i in range(2 + 5):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.predict(batch, *flags)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            if i >= 2:
+                dev_ms.append(sum(self_device_us(e) for e in prof.key_averages()) / 1e3)
+                wall_ms.append(wall)
+        key = f"CmpFlow={flags[0]},MotMask={flags[1]}"
+        predict_ms[key] = {"device_ms": float(np.median(dev_ms)), "wall_ms": float(np.median(wall_ms))}
+        print(f"  predict {key} at {H}x{W} batch {B}: {predict_ms[key]['device_ms']:.3f} ms device, "
+              f"{predict_ms[key]['wall_ms']:.3f} ms wall with the copy in (median of 5 after 2 warm-ups) on {smi}")
+    return {"launches": launches, "peak_bytes": peak, "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+            "predict": predict_ms, "plots_written": mc["pdfs"], "plots_missing": mc["missing"],
+            "odometry_ate": card["odometry"]["ates"]}
 
 
 def main():
@@ -588,6 +769,10 @@ def main():
     # ---- 7. the curriculum from the port's entry point, on tiny_kitti -----
     phase7 = run_curriculum(smi)
 
+    # ---- 8. the eval path from phase 7's last checkpoint -------------------
+    print(f"eval path: the four eval CLIs and the quick demo from {phase7['folder']}, on the card and on the CPU:")
+    phase8 = run_eval(smi, phase7["folder"], phase7["work"])
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -605,7 +790,7 @@ def main():
             "launches_fine_tune_steps": counts[k], "launches_per_step": counts[k] / steps, "max_abs_err": errors[k],
             "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": lib_ms, "wall_ms": wall[(k, "uniform" if warp_k else None)][0],
-            "in_step_ms": in_step[k],
+            "in_step_ms": in_step[k], "launches_eval": phase8["launches"][k],
         }
         if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
             ms_e, plain_e, lib_e = timings[(k, "ego")]
@@ -615,7 +800,7 @@ def main():
                           "library_ms_step_grids": float(np.mean(lib_step[k]))})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
-                      "peak_bytes": peak, "curriculum": phase7["summary"], "card": smi}))
+                      "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -47,7 +47,11 @@ def _load() -> Optional[ctypes.CDLL]:
                     build_error = (proc.stdout + proc.stderr).strip() or f"build.sh exited {proc.returncode}"
                     return None
                 os.replace(os.path.join(tmp, LIB_PATH.name), LIB_PATH)
-        lib = ctypes.CDLL(str(LIB_PATH))
+        try:
+            lib = ctypes.CDLL(str(LIB_PATH))
+        except OSError as e:  # built where libjpeg/libpng exist, loaded where they do not
+            build_error = f"{LIB_PATH} does not load: {e}"
+            return None
         lib.ddt_version.restype = ctypes.c_int
         lib.ddt_version.argtypes = []
         lib.ddt_decode_resize_batch.restype = ctypes.c_int

@@ -82,7 +82,8 @@ class Trainer:
     def __init__(self, cfg: DynamoConfig, device: Optional[str] = None, phase: str = "fine_tune",
                  steps_per_epoch: Optional[int] = None, drop_path_rate: float = 0.4):
         cfg.validate()
-        if cfg.weights_init != "scratch":
+        if cfg.weights_init != "scratch" and not cfg.load_ckpt:
+            # A checkpoint replaces the initial weights, as in the JAX package.
             raise NotImplementedError("only weights_init='scratch' is ported: the pretrained backbones are not in the repository")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError("only compute_dtype='float32' is ported")
@@ -148,6 +149,10 @@ class Trainer:
             h, w = self.H // (2 ** scale), self.W // (2 ** scale)
             out[("color", 0, scale)] = resize_bicubic_aa(out[("color", 0, scale - 1)], (h, w))
         return out
+
+    def get_dataset(self, filenames, is_train=False, load_depth=False, load_mask=False, img_type=None):
+        return make_dataset(self.cfg, filenames, is_train=is_train, load_depth=load_depth, load_mask=load_mask,
+                            img_type=img_type)
 
     def _copy_async(self, batch: Dict):
         """Queue the copy of a host batch to the device; -> (tensors, event
@@ -327,14 +332,37 @@ class Trainer:
             self.model.train()
         self.log_scalars("val", losses)
 
-    def depth_metrics(self, inputs: Dict, outputs: Dict) -> Dict:
+    def depth_metrics(self, inputs: Dict, outputs: Dict, mask_pts=None, labels=None, sample_weight=None) -> Dict:
         """Sparse-point depth metrics of ``outputs[('disp_scaled', 0, 0)]``
-        against the host batch's LiDAR points, on the device."""
+        against the host batch's LiDAR points, on the device; with ``labels``,
+        also per mask label of ``mask_pts`` (the labels at the points), and
+        ``sample_weight`` drops padded samples (``ops/metrics.py``)."""
         cfg = self.cfg
         return depth_metrics(
             outputs[("disp_scaled", 0, 0)], inputs["depth_gt"], inputs["depth_valid"], inputs["gt_dim"],
             cfg.eval_img_bound, min_depth=cfg.eval_min_depth, max_depth=float(cfg.eval_max_depth),
+            mask_pts=mask_pts, labels=labels, sample_weight=sample_weight,
         )
+
+    # --------------------------------------------------------------- predict
+
+    def predict(self, batch: Dict, bool_CmpFlow=False, bool_MotMask=False) -> Dict:
+        """Eval-mode forward of the ``('color_aug', f, 0)`` images of a host
+        batch, for the eval CLIs (the JAX package's ``Trainer.predict``):
+        running BatchNorm statistics, no drop-path, no gradients. Returns the
+        model's outputs on the device, images NCHW; the model's mode is
+        restored afterwards."""
+        images = {k: v for k, v in batch.items() if isinstance(k, tuple) and k[0] == "color_aug"}
+        if not images:
+            raise ValueError("predict() needs ('color_aug', <frame>, 0) keys in the batch; none were present")
+        inputs = self.to_device(images)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                return self.model(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask)
+        finally:
+            self.model.train(was_training)
 
     # -------------------------------------------------------------------- io
 

@@ -161,3 +161,19 @@ def test_native_decoder_equals_pil(monkeypatch):
                 continue  # the jitter of those, which can amplify that level
             else:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=str(k))
+
+
+def test_a_library_that_does_not_load_leaves_pil(monkeypatch, tmp_path):
+    # A library built on a machine with libjpeg and libpng, loaded on one
+    # without them (or any other file that is not a loadable library).
+    lib = tmp_path / "libddt_dataplane.so"
+    lib.write_bytes(b"not a shared object")
+    monkeypatch.setattr(t_native, "LIB_PATH", lib)
+    monkeypatch.setattr(t_native, "_lib", None)
+    monkeypatch.setattr(t_native, "build_error", None)
+    assert not t_native.available()
+    assert "does not load" in t_native.build_error
+    _, t_ds = _datasets("kitti", True)
+    t_base.reset_decode_counts()
+    t_ds.get_item(0, rng=np.random.RandomState(0))
+    assert t_base.decode_counts()["pil"] > 0 and t_base.decode_counts()["native"] == 0

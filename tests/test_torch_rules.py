@@ -77,6 +77,17 @@ def test_the_entry_point_needs_the_card_unless_asked_for_cpu(monkeypatch, tmp_pa
         train_entry.main(argv, device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["eval.depth", "eval.motion_segmentation", "eval.odometry", "eval.visualize",
+                                   "quick_demo"])
+def test_the_eval_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch, tmp_path, entry):
+    module = importlib.import_module(f"dynamo_depth_torch.{entry}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["-d", "waymo", "--height", "32", "--width", "64", "--weights_init", "scratch", "--eval_dir", str(tmp_path)]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main(argv, device=device)
+
+
 def test_trainer_refuses_what_is_not_ported():
     cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1)  # weights_init="pretrained"
     with pytest.raises(NotImplementedError):
