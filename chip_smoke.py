@@ -22,7 +22,8 @@ Phases (any failure exits non-zero, nothing is caught):
    profiler, and CUDA events around one call) beside its bound: the bytes it
    must move over the card's memory rate, or its operations over the card's
    float32 rate; the warp on both grids, with the ego-motion grid's
-   displacement;
+   displacement; the kernels and the library calls also with a cold L2
+   (a 64 MB buffer overwritten before each call);
 5. one ``fine_tune`` step on the card against the same step on the CPU (the
    plain versions) from the same weights at 64x96;
 6. the main path: the LiteMono ``fine_tune`` step at 192x640, batch 3,
@@ -30,9 +31,10 @@ Phases (any failure exits non-zero, nothing is caught):
    and 5 timed steps, finite losses, moving weights, and 6 launches per step
    of each of the four kernels; then one profiled step, with each kernel's
    own device time inside it; then one more step whose six warp inputs are
-   captured, with each grid's displacement and the warp kernels and
-   ``F.grid_sample``'s forward and backward (``grid_sampler_2d``) timed alone
-   on them;
+   captured and saved to ``build/chip_smoke/step_warp_inputs.pt`` (for
+   ``bench/kernel_ab.py --step-inputs``), with each grid's displacement and
+   the warp kernels and ``F.grid_sample``'s forward and backward
+   (``grid_sampler_2d``) timed alone on them, with a warm and a cold L2;
 7. the curriculum from the port's entry point,
    ``dynamo_depth_torch.train.main``, on the vendored ``assets/tiny_kitti``
    (LiteMono, 192x640, batch 3, float32, one epoch of 3 steps per phase, one
@@ -124,8 +126,7 @@ def run_curriculum(smi):
     from dynamo_depth_torch.training import trainer as trainer_mod
 
     root = Path(__file__).resolve().parent
-    work = root / "build" / "chip_smoke"
-    shutil.rmtree(work, ignore_errors=True)
+    work = root / "build" / "chip_smoke"  # emptied by main() before phase 6
     split_dir = work / "splits" / "tiny_kitti"
     split_dir.mkdir(parents=True)
     items = [f"2011_09_26/2011_09_26_drive_0001_sync {i} {side}" for i in (0, 1) for side in ("l", "r")]
@@ -602,13 +603,15 @@ def main():
     )
     # ms: device time (all kernels of one call, torch.profiler); wall_ms:
     # CUDA events around one call, which include the host's launch overhead.
-    timings, wall = {}, {}
+    # cold: the kernel and the library call with a cold L2.
+    timings, wall, cold = {}, {}, {}
     for key, fns in calls.items():
         dev_t = [None if fn is None else device_ms(fn) for fn in fns]
         wall_t = [None if fn is None else median_ms(fn) for fn in fns]
         # Without device activity in the profile, fall back to the events.
         timings[key] = [d if d is not None or w is None else w for d, w in zip(dev_t, wall_t)]
         wall[key] = wall_t
+        cold[key] = [None if fn is None else device_ms(fn, cold=True) for fn in (fns[0], fns[2])]
     del calls, out_plain_ph
     bounds = {}
     print(f"timing (ms; device time from the profiler, wall = events around one call) at B={B} C={C} {H}x{W} on {smi}:")
@@ -620,8 +623,10 @@ def main():
         plain = "n/a" if plain_ms is None else f"{plain_ms:.4f} (wall {w[1]:.4f})"
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} (wall {w[2]:.4f})"
         where = "" if label is None else f" [{label} grid]"
+        c_ms, c_lib = cold[(k, label)]
+        lib_cold = "" if c_lib is None else f", library {c_lib:.4f}"
         print(f"  {k}{where}: kernel {ms:.4f} (wall {w[0]:.4f}) | plain {plain} "
-              f"| library {lib} | bound {bounds[k][0]:.4f} ({bounds[k][1]})")
+              f"| library {lib} | bound {bounds[k][0]:.4f} ({bounds[k][1]}) | cold L2: kernel {c_ms:.4f}{lib_cold}")
 
     # ---- 5. the step on the card against the step on the CPU --------------
     small = DynamoConfig(dataset="kitti", height=64, width=96, batch_size=2, weights_init="scratch")
@@ -654,6 +659,9 @@ def main():
     del t_gpu, t_cpu
 
     # ---- 6. the main path: fine_tune at 192x640, batch 3 -------------------
+    smoke_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    shutil.rmtree(smoke_dir, ignore_errors=True)
+    smoke_dir.mkdir(parents=True)
     cfg = DynamoConfig(dataset="kitti", depth_model="litemono", batch_size=B, weights_init="scratch")
     trainer = Trainer(cfg)  # the card, float32, drop-path 0.4
     batch = trainer.to_device(synthetic_batch(cfg, B, cfg.height, cfg.width))
@@ -741,10 +749,15 @@ def main():
         warp.warp_fwd = launch_fwd
     if len(captured) != 6 or any(im.shape != img.shape or gr.shape != grid.shape for im, gr in captured):
         raise SystemExit(f"captured {len(captured)} warp inputs of the step, expected 6 of {tuple(img.shape)}")
-    # device ms alone on each captured input: the kernels, and the library's
-    # forward and backward (grid_sampler_2d, d_grid only, as in the step)
+    torch.save({"images": [im.cpu() for im, _ in captured], "grids": [gr.cpu() for _, gr in captured]},
+               smoke_dir / "step_warp_inputs.pt")
+    # device ms alone on each captured input, with a warm and a cold L2: the
+    # kernels, and the library's forward and backward (grid_sampler_2d,
+    # d_grid only, as in the step)
     on_step = {"warp_fwd": [], "warp_bwd": []}
     lib_step = {"warp_fwd": [], "warp_bwd": []}
+    on_step_cold = {"warp_fwd": [], "warp_bwd": []}
+    lib_step_cold = {"warp_fwd": [], "warp_bwd": []}
     print(f"the step's warp inputs, kernels and F.grid_sample alone on each (device ms; in the step: "
           f"warp_fwd {in_step['warp_fwd']:.4f}, warp_bwd {in_step['warp_bwd']:.4f} per launch):")
     for i, (im, gr) in enumerate(captured):
@@ -752,18 +765,25 @@ def main():
             raise SystemExit(f"step grid {i} is not finite")
         g_req = gr.clone().requires_grad_()
         out_lib = F.grid_sample(im, g_req, mode="bilinear", padding_mode="border", align_corners=True)
-        on_step["warp_fwd"].append(device_ms(lambda: warp.warp_fwd(im, gr)))
-        on_step["warp_bwd"].append(device_ms(lambda: warp.warp_bwd(im, gr, g_warp, False)))
-        lib_step["warp_fwd"].append(device_ms(
-            lambda: F.grid_sample(im, gr, mode="bilinear", padding_mode="border", align_corners=True)))
-        lib_step["warp_bwd"].append(device_ms(lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True)))
-        print(f"  grid {i}: {displacement(gr)}; warp_fwd {on_step['warp_fwd'][i]:.4f} "
-              f"(library {lib_step['warp_fwd'][i]:.4f}), warp_bwd {on_step['warp_bwd'][i]:.4f} "
-              f"(library {lib_step['warp_bwd'][i]:.4f})")
+        fns = {
+            "warp_fwd": (lambda: warp.warp_fwd(im, gr),
+                         lambda: F.grid_sample(im, gr, mode="bilinear", padding_mode="border", align_corners=True)),
+            "warp_bwd": (lambda: warp.warp_bwd(im, gr, g_warp, False),
+                         lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True)),
+        }
+        for k, (kernel_fn, lib_fn) in fns.items():
+            on_step[k].append(device_ms(kernel_fn))
+            lib_step[k].append(device_ms(lib_fn))
+            on_step_cold[k].append(device_ms(kernel_fn, cold=True))
+            lib_step_cold[k].append(device_ms(lib_fn, cold=True))
+        print(f"  grid {i}: {displacement(gr)}; " + ", ".join(
+            f"{k} {on_step[k][i]:.4f} (library {lib_step[k][i]:.4f}; cold L2 {on_step_cold[k][i]:.4f}, "
+            f"library {lib_step_cold[k][i]:.4f})" for k in fns))
     for k in on_step:
         ours, lib = float(np.mean(on_step[k])), float(np.mean(lib_step[k]))
         print(f"  {k} on the step's grids: mean {ours:.4f} ms, library {lib:.4f} ms "
-              f"({'kernel faster' if ours < lib else 'library faster'})")
+              f"({'kernel faster' if ours < lib else 'library faster'}); cold L2: "
+              f"{float(np.mean(on_step_cold[k])):.4f} ms, library {float(np.mean(lib_step_cold[k])):.4f} ms")
     del captured, out_lib
 
     # ---- 7. the curriculum from the port's entry point, on tiny_kitti -----
@@ -791,13 +811,18 @@ def main():
             "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             "library_ms": lib_ms, "wall_ms": wall[(k, "uniform" if warp_k else None)][0],
             "in_step_ms": in_step[k], "launches_eval": phase8["launches"][k],
+            "ms_cold": cold[(k, "uniform" if warp_k else None)][0],
+            "library_ms_cold": cold[(k, "uniform" if warp_k else None)][1],
         }
         if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
             ms_e, plain_e, lib_e = timings[(k, "ego")]
             entry.update({"ms_ego_grid": ms_e, "plain_ms_ego_grid": plain_e, "library_ms_ego_grid": lib_e,
                           "wall_ms_ego_grid": wall[(k, "ego")][0],
+                          "ms_ego_grid_cold": cold[(k, "ego")][0], "library_ms_ego_grid_cold": cold[(k, "ego")][1],
                           "ms_step_grids": float(np.mean(on_step[k])),
-                          "library_ms_step_grids": float(np.mean(lib_step[k]))})
+                          "library_ms_step_grids": float(np.mean(lib_step[k])),
+                          "ms_step_grids_cold": float(np.mean(on_step_cold[k])),
+                          "library_ms_step_grids_cold": float(np.mean(lib_step_cold[k]))})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "card": smi}))

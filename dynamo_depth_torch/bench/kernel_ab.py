@@ -1,7 +1,8 @@
 """Time this checkout's CUDA kernels against another checkout's, on one card.
 
     git archive <commit> | tar -x -C build/other      # any git-ignored directory
-    python3 -m dynamo_depth_torch.bench.kernel_ab --other build/other
+    python3 -m dynamo_depth_torch.bench.kernel_ab --other build/other \
+        [--step-inputs build/chip_smoke/step_warp_inputs.pt]
 
 Both checkouts' ``csrc/*.cu`` export the same C functions (``warp_fwd``,
 ``warp_bwd``, ``photometric_fwd``, ``photometric_bwd``), declared once in
@@ -15,8 +16,10 @@ also at exact ties (K2 on the uniform grid clipped to [-1, 1], K4 where
 pred equals target), reports how far the two disagree, and times each in
 turns (other, this, this, other) with
 ``bench/timing.py``: device time per call from ``torch.profiler``, and the
-median of CUDA events around one call. Prints the card, one line per
-kernel and grid, and one JSON object last.
+median of CUDA events around one call. ``--step-inputs`` adds the warp's
+inputs of one main-path step, as ``chip_smoke.py`` phase 6 saves them (six
+images and grids): K1 and K2 run on each, with the same random gradient.
+Prints the card, one line per kernel and grid, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -54,16 +57,19 @@ def _launchers(builder, t):
     photo = builder.load("photometric", photometric_wrapper._SIGNATURES)
     s = torch.cuda.current_stream().cuda_stream
     out = {}
-    for label, grid in (("uniform grid", t["grid"]), ("ego grid", t["ego"]), ("on-border grid", t["on_border"])):
+    warp_inputs = [("uniform grid", t["img"], t["grid"]), ("ego grid", t["img"], t["ego"]),
+                   ("on-border grid", t["img"], t["on_border"])]
+    warp_inputs += [(f"step grid {i}", im, gr) for i, (im, gr) in enumerate(t["step"])]
+    for label, img, grid in warp_inputs:
         o = torch.empty(B, C, H, W, device="cuda")
         d = torch.empty_like(grid)
         if label != "on-border grid":
             out[("warp_fwd", label)] = (
-                lambda o=o, grid=grid: build.check(warp.warp_fwd(t["img"].data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
+                lambda o=o, img=img, grid=grid: build.check(warp.warp_fwd(img.data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
                 o,
             )
         out[("warp_bwd", label)] = (
-            lambda d=d, grid=grid: build.check(warp.warp_bwd(t["img"].data_ptr(), grid.data_ptr(), t["g_warp"].data_ptr(), d.data_ptr(), None, B, C, H, W, H, W, s), "warp_bwd"),
+            lambda d=d, img=img, grid=grid: build.check(warp.warp_bwd(img.data_ptr(), grid.data_ptr(), t["g_warp"].data_ptr(), d.data_ptr(), None, B, C, H, W, H, W, s), "warp_bwd"),
             d,
         )
     o = torch.empty(B, 1, H, W, device="cuda")
@@ -84,6 +90,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
     ap.add_argument("--calls", type=int, default=TIMED_RUNS, help="calls per timing")
+    ap.add_argument("--step-inputs", type=Path, help="the warp's inputs of one step, saved by chip_smoke.py phase 6")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -103,6 +110,12 @@ def main(argv=None):
         "ego": ego_motion_grid(B, H, W, seed=0).cuda(),
     }
     t["on_border"] = t["grid"].clamp(-1.0, 1.0)
+    t["step"] = []
+    if args.step_inputs is not None:
+        saved = torch.load(args.step_inputs, map_location="cuda")
+        t["step"] = list(zip(saved["images"], saved["grids"]))
+        if any(im.shape != (B, C, H, W) or gr.shape != (B, H, W, 2) for im, gr in t["step"]):
+            raise SystemExit(f"{args.step_inputs}: the step's warp inputs are not of shape {(B, C, H, W)}")
     sets = {"other": _launchers(_other_build(args.other.resolve()), t), "this": _launchers(build, t)}
 
     diffs = {}
@@ -135,7 +148,14 @@ def main(argv=None):
 
         print(f"  {key[0]}{where}: other {fmt(row['other_ms'])} ({row['other_event_ms']:.5f}) | "
               f"this {fmt(row['this_ms'])} ({row['this_event_ms']:.5f}) | max abs diff {diffs[key]:.2e}")
-    print(json.dumps({"card": smi, "kernel_ab": rows}))
+    summary = {}
+    for k in ("warp_fwd", "warp_bwd"):
+        step_rows = [r for r in rows if r["kernel"] == k and str(r["inputs"]).startswith("step grid")]
+        if step_rows and all(r["other_ms"] is not None and r["this_ms"] is not None for r in step_rows):
+            summary[k] = {side: sum(r[f"{side}_ms"] for r in step_rows) / len(step_rows) for side in ("other", "this")}
+            print(f"  {k} [mean of {len(step_rows)} step grids]: other {summary[k]['other']:.5f} | "
+                  f"this {summary[k]['this']:.5f}")
+    print(json.dumps({"card": smi, "kernel_ab": rows, "step_grid_means": summary}))
     return 0
 
 

@@ -8,7 +8,7 @@
 //
 // Bound on the H100: bytes. Per output pixel and 3 channels the forward does
 // ~15 flops against 32 bytes it must move (8 of grid, 12 of taps, 12 of
-// output); the backward likewise (grid and gradient in, d_grid out).
+// output).
 //
 // K1, designed for Hopper:
 // - Tile: a block of 32x4 threads owns a 64x4 output tile, batch on
@@ -28,27 +28,46 @@
 //   hits they replace. On a uniform random grid every tap of every pixel
 //   lands in its own 32-byte sector and the kernel is bound by that traffic.
 //
-// K2: one thread per output pixel reads its grid point once, does the
-// unnormalize / border clamp / floor / clip in registers, reads the four
-// taps of every channel, sums the coordinate gradient over channels in
-// registers and writes d_grid once per pixel; it is zero where the clamp
-// saturates (the coordinate lies outside [0, size-1]) and half where the
-// coordinate lies exactly on 0 or size-1, as jnp.clip's. d_image, needed only
-// when the image requires a gradient, is the scatter-add transpose of the
-// four taps, done with atomicAdd into a zeroed buffer, so its sums run in no
-// fixed order.
+// K2 replaces `_gather_taps_bwd` (warp_kernel.py:126), the backward of the
+// tap gather, which gave d_image as XLA's scatter transpose, together with
+// XLA's autodiff of the coordinate math and the lerp, which gave d_grid
+// (warp_kernel.py:144-172, ops/warp.py:25-41). It fuses both: d_grid always,
+// d_image only when the image needs a gradient (never on the main path,
+// whose warped images are inputs).
 //
-// Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out
-// (B, C, Ho, Wo); all float32, contiguous. H, W >= 2; H * W and Ho * Wo
-// below 2^31.
+// Bound on the H100: bytes. Per output pixel and 3 channels it moves 40
+// bytes (8 of grid, 12 of taps, 12 of gradient in; 8 of d_grid out) against
+// ~44 float32 operations.
+//
+// K2, designed for Hopper (K1's tiling, so both visit the source in the same
+// order and a tile's rows share their source rows in L1):
+// - Tile: a block of 32x4 threads owns a 64x4 output tile, batch on
+//   blockIdx.z, 32-bit offsets within a plane.
+// - Per-thread work: 2 neighbouring output pixels of one row: one 16-byte
+//   load of their grid points, one 8-byte load of their gradient per
+//   channel, one 16-byte store of their four d_grid values; scalar accesses
+//   for odd Wo, at the ragged right edge and where a pointer is not aligned.
+// - The channel count is a template parameter: the C = 3 instance is fully
+//   unrolled, so the gradient loads (which do not depend on the grid), then
+//   all 12 taps of both pixels, are in flight before the arithmetic. A
+//   generic instance takes the channel count at run time.
+// - d_image is a second template parameter. The main path's instance has no
+//   atomics; the other scatter-adds the transpose of the four taps into a
+//   zeroed buffer with atomicAdd, so its sums run in no fixed order.
+// - The coordinate gradient is zero where the clamp saturates (the coordinate
+//   lies outside [0, size-1]) and half where it lies exactly on 0 or size-1,
+//   as jnp.clip's.
+//
+// Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out and g_out
+// (B, C, Ho, Wo), d_grid (B, Ho, Wo, 2); all float32, contiguous. H, W >= 2;
+// H * W and Ho * Wo below 2^31.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
-
-constexpr int kThreads = 256;  // K2: one output pixel per thread
 
 // K1 tiling.
 constexpr int FWD_TX = 32, FWD_TY = 4;  // threads per block
@@ -127,46 +146,176 @@ __global__ void __launch_bounds__(FWD_TX * FWD_TY)
   }
 }
 
-__global__ void warp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
-                                const float* __restrict__ g_out, float* __restrict__ d_grid,
-                                float* __restrict__ d_img, int B, int C, int H, int W, int Ho,
-                                int Wo) {
-  const long long P = static_cast<long long>(Ho) * Wo;
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= B * P) return;
-  const int b = static_cast<int>(n / P);
-  const long long p = n - b * P;
-
-  const Coord cx = unnormalize(grid[2 * n], W);
-  const Coord cy = unnormalize(grid[2 * n + 1], H);
-  const long long HW = static_cast<long long>(H) * W;
-  const long long origin = static_cast<long long>(cy.i0) * W + cx.i0;
-  const float* src = img + b * C * HW + origin;
-  const float* go = g_out + b * C * P + p;
-  float dwx = 0.0f, dwy = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const float* s = src + c * HW;
-    const float v00 = s[0], v01 = s[1], v10 = s[W], v11 = s[W + 1];
-    const float g = go[c * P];
-    const float top = v00 + (v01 - v00) * cx.w;
-    const float bot = v10 + (v11 - v10) * cx.w;
-    dwy += g * (bot - top);
-    dwx += g * ((1.0f - cy.w) * (v01 - v00) + cy.w * (v11 - v10));
-    if (d_img != nullptr) {
-      float* d = d_img + (b * C + c) * HW + origin;
-      const float gt = g * (1.0f - cy.w), gb = g * cy.w;
-      atomicAdd(d, gt * (1.0f - cx.w));
-      atomicAdd(d + 1, gt * cx.w);
-      atomicAdd(d + W, gb * (1.0f - cx.w));
-      atomicAdd(d + W + 1, gb * cx.w);
+// N consecutive floats through the read-only path, as float4s (N % 4 == 0)
+// or one float2; p aligned to 4 * min(N, 4) bytes.
+template <int N>
+__device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
+      v[i] = t.x; v[i + 1] = t.y; v[i + 2] = t.z; v[i + 3] = t.w;
     }
+  } else {
+    static_assert(N == 2, "load_vec takes 2 or a multiple of 4 floats");
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
   }
-  d_grid[2 * n] = cx.inside * dwx * 0.5f * static_cast<float>(W - 1);
-  d_grid[2 * n + 1] = cy.inside * dwy * 0.5f * static_cast<float>(H - 1);
 }
 
-unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+// The pixels [ox, ox + kPX) of output row oy of batch element b. kC: the
+// channel count, or 0 for one given at run time in C. vec: every pointer is
+// aligned for the vector accesses and Wo % kPX == 0.
+template <int kC, bool kImageGrad, int kPX>
+__device__ __forceinline__ void warp_bwd_pixels(const float* __restrict__ img,
+                                                const float* __restrict__ grid,
+                                                const float* __restrict__ g_out,
+                                                float* __restrict__ d_grid,
+                                                float* __restrict__ d_img, int C, int H, int W,
+                                                int Ho, int Wo, bool vec, int b, int ox, int oy) {
+  if (oy >= Ho || ox >= Wo) return;
+  const int nc = kC > 0 ? kC : C;
+  const int n = min(kPX, Wo - ox);  // this thread's pixels
+  const bool full = vec && n == kPX;
+  const int at = oy * Wo + ox;      // offset within an output plane
+  const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
+
+  float g[2 * kPX];
+  const float* gp = grid + 2 * (b * P + at);
+  if (full) {
+    load_vec(g, gp);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2 * kPX; ++k) g[k] = k < 2 * n ? __ldg(gp + k) : 0.f;
+  }
+  int off[kPX];  // tap origin within an image plane
+  Coord cx[kPX], cy[kPX];
+#pragma unroll
+  for (int k = 0; k < kPX; ++k) {
+    cx[k] = unnormalize(g[2 * k], W);
+    cy[k] = unnormalize(g[2 * k + 1], H);
+    off[k] = cy[k].i0 * W + cx[k].i0;
+  }
+
+  float dwx[kPX], dwy[kPX];
+#pragma unroll
+  for (int k = 0; k < kPX; ++k) dwx[k] = dwy[k] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {
+    const size_t plane = static_cast<size_t>(b) * nc + c;
+    float go[kPX];
+    const float* gs = g_out + plane * P + at;
+    if (full) {
+      load_vec(go, gs);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPX; ++k) go[k] = k < n ? __ldg(gs + k) : 0.f;
+    }
+    const float* src = img + plane * HW;
+#pragma unroll
+    for (int k = 0; k < kPX; ++k) {
+      const float* s = src + off[k];
+      const float v00 = __ldg(s), v01 = __ldg(s + 1), v10 = __ldg(s + W), v11 = __ldg(s + W + 1);
+      const float wx = cx[k].w, wy = cy[k].w;
+      const float top = v00 + (v01 - v00) * wx;
+      const float bot = v10 + (v11 - v10) * wx;
+      dwy[k] += go[k] * (bot - top);
+      dwx[k] += go[k] * ((1.0f - wy) * (v01 - v00) + wy * (v11 - v10));
+      if constexpr (kImageGrad) {
+        if (k < n) {
+          float* d = d_img + plane * HW + off[k];
+          const float gt = go[k] * (1.0f - wy), gb = go[k] * wy;
+          atomicAdd(d, gt * (1.0f - wx));
+          atomicAdd(d + 1, gt * wx);
+          atomicAdd(d + W, gb * (1.0f - wx));
+          atomicAdd(d + W + 1, gb * wx);
+        }
+      }
+    }
+  }
+
+  const float sx = 0.5f * static_cast<float>(W - 1), sy = 0.5f * static_cast<float>(H - 1);
+  float dg[2 * kPX];
+#pragma unroll
+  for (int k = 0; k < kPX; ++k) {
+    dg[2 * k] = cx[k].inside * dwx[k] * sx;
+    dg[2 * k + 1] = cy[k].inside * dwy[k] * sy;
+  }
+  float* dp = d_grid + 2 * (b * P + at);
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < 2 * kPX; i += 4)
+      *reinterpret_cast<float4*>(dp + i) = make_float4(dg[i], dg[i + 1], dg[i + 2], dg[i + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2 * kPX; ++k)
+      if (k < 2 * n) dp[k] = dg[k];
+  }
+}
+
+// One kTX*kPX x kTY output tile per block.
+template <int kC, bool kImageGrad, int kTX, int kTY, int kPX>
+__global__ void __launch_bounds__(kTX * kTY)
+    warp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
+                    const float* __restrict__ g_out, float* __restrict__ d_grid,
+                    float* __restrict__ d_img, int C, int H, int W, int Ho, int Wo, bool vec) {
+  warp_bwd_pixels<kC, kImageGrad, kPX>(img, grid, g_out, d_grid, d_img, C, H, W, Ho, Wo, vec,
+                                        blockIdx.z, blockIdx.x * kTX * kPX + threadIdx.x * kPX,
+                                        blockIdx.y * kTY + threadIdx.y);
+}
+
+// The same tiles, walked by a fixed set of blocks (as many as fit on the
+// card at once), each taking every gridDim.x-th tile.
+template <int kC, bool kImageGrad, int kTX, int kTY, int kPX>
+__global__ void __launch_bounds__(kTX * kTY)
+    warp_bwd_kernel_persistent(const float* __restrict__ img, const float* __restrict__ grid,
+                               const float* __restrict__ g_out, float* __restrict__ d_grid,
+                               float* __restrict__ d_img, int B, int C, int H, int W, int Ho,
+                               int Wo, bool vec) {
+  const int tiles_x = (Wo + kTX * kPX - 1) / (kTX * kPX), tiles_y = (Ho + kTY - 1) / kTY;
+  const int per_plane = tiles_x * tiles_y;
+  for (int t = blockIdx.x; t < B * per_plane; t += gridDim.x) {
+    const int b = t / per_plane, r = t - b * per_plane;
+    const int ty = r / tiles_x, tx = r - ty * tiles_x;
+    warp_bwd_pixels<kC, kImageGrad, kPX>(img, grid, g_out, d_grid, d_img, C, H, W, Ho, Wo, vec,
+                                          b, tx * kTX * kPX + threadIdx.x * kPX,
+                                          ty * kTY + threadIdx.y);
+  }
+}
+
+template <int kC, bool kImageGrad, int kTX, int kTY, int kPX, bool kPersistent>
+int launch_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
+               float* d_img, int B, int C, int H, int W, int Ho, int Wo, cudaStream_t stream) {
+  const bool vec = Wo % kPX == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(d_grid) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g_out) % (4 * kPX) == 0;
+  const dim3 threads(kTX, kTY);
+  if constexpr (kPersistent) {
+    auto kernel = warp_bwd_kernel_persistent<kC, kImageGrad, kTX, kTY, kPX>;
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTX * kTY, 0);
+    const int tiles = ((Wo + kTX * kPX - 1) / (kTX * kPX)) * ((Ho + kTY - 1) / kTY) * B;
+    const int blocks = std::min(tiles, sms * std::max(per_sm, 1));
+    kernel<<<blocks, threads, 0, stream>>>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, vec);
+  } else {
+    const dim3 blocks((Wo + kTX * kPX - 1) / (kTX * kPX), (Ho + kTY - 1) / kTY, B);
+    warp_bwd_kernel<kC, kImageGrad, kTX, kTY, kPX><<<blocks, threads, 0, stream>>>(
+        img, grid, g_out, d_grid, d_img, C, H, W, Ho, Wo, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kTX, int kTY, int kPX, bool kPersistent>
+int dispatch_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
+                 float* d_img, int B, int C, int H, int W, int Ho, int Wo, cudaStream_t stream) {
+  if (C == 3) {
+    return d_img ? launch_bwd<3, true, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream)
+                 : launch_bwd<3, false, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
+  }
+  return d_img ? launch_bwd<0, true, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream)
+               : launch_bwd<0, false, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
 }
 
 }  // namespace
@@ -183,12 +332,24 @@ extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 variants, measured against each other by bench/warp_bwd_variants.py:
+// 0: 32x4 threads, 2 pixels each (64x4 tiles); 1: 32x4 threads, 4 pixels
+// each (128x4 tiles); 2: 16x8 threads, 2 pixels each (32x8 tiles); 3: as 0,
+// with a persistent grid-stride launch.
+extern "C" int warp_bwd_variant(const float* img, const float* grid, const float* g_out,
+                                float* d_grid, float* d_img, int B, int C, int H, int W, int Ho,
+                                int Wo, int variant, void* stream) {
+  if (B <= 0 || Ho <= 0 || Wo <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 1: return dispatch_bwd<32, 4, 4, false>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
+    case 2: return dispatch_bwd<16, 8, 2, false>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
+    case 3: return dispatch_bwd<32, 4, 2, true>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
+    default: return dispatch_bwd<32, 4, 2, false>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
+  }
+}
+
 extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
                         float* d_img, int B, int C, int H, int W, int Ho, int Wo, void* stream) {
-  const long long n = static_cast<long long>(B) * Ho * Wo;
-  if (n > 0) {
-    warp_bwd_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return warp_bwd_variant(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, 0, stream);
 }

@@ -6,10 +6,14 @@ has no CPU mode). On the card:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Shapes are chosen for the edges of the kernels' tiling: widths that are not
-multiples of the tiles (64 for K1 and K4, K3's 30-column warp bands) or of
-K1's 2-pixel and K4's 16-byte vectors, heights not multiples of K3's 8-row
-strips, K4's 16-row tile or its 4-row strips, the smallest images (2 and 3
-pixels, where every pixel is a reflected border), one and four channels. K1
+multiples of the tiles (64 for K1, K2 and K4, K3's 30-column warp bands) or
+of K1's and K2's 2-pixel and K4's 16-byte vectors, one pixel past a tile
+(65), heights not multiples of K1's and K2's 4-row tiles, K3's 8-row strips,
+K4's 16-row tile or its 4-row strips, the smallest images (2 and 3 pixels,
+where every pixel is a reflected border), one to four channels (K2 has an
+unrolled instance for three and a generic one for the others). K2 also runs
+at the main path's size on the ego-motion grid, and with its grid and
+gradient 4 bytes off 16-byte alignment, where it takes scalar accesses. K1
 is also run on grids at both ends of locality: near the identity
 (neighbouring pixels share taps), the ego-motion stand-in
 ``training/synthetic.py::ego_motion_grid``, and uniform over the image (every
@@ -42,19 +46,32 @@ def _scale_tol(ref, rel):
     return rel * max(1.0, float(ref.abs().max()))
 
 
+def _misaligned(t):
+    """``t``'s values in a contiguous view 4 bytes past 16-byte alignment."""
+    buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
+    view = buf[1:1 + t.numel()].view_as(t)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
 @pytest.mark.parametrize("border", ["beyond", "on"])
-@pytest.mark.parametrize("shape", [
-    (2, 3, 9, 13, 7, 11), (1, 3, 2, 2, 5, 3), (2, 1, 37, 70, 37, 70), (1, 4, 8, 32, 16, 64),
-    (1, 3, 3, 3, 3, 3), (2, 4, 17, 67, 17, 67), (1, 1, 20, 130, 9, 65), (1, 3, 24, 64, 24, 128),
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 3, 9, 13, 7, 11), "uniform"), ((1, 3, 2, 2, 5, 3), "uniform"), ((2, 1, 37, 70, 37, 70), "uniform"),
+    ((1, 4, 8, 32, 16, 64), "uniform"), ((1, 3, 3, 3, 3, 3), "uniform"), ((2, 4, 17, 67, 17, 67), "uniform"),
+    ((1, 1, 20, 130, 9, 65), "uniform"), ((1, 3, 24, 64, 24, 128), "uniform"),
+    ((1, 3, 9, 40, 5, 33), "uniform"), ((1, 3, 20, 70, 6, 65), "uniform"), ((2, 2, 16, 40, 10, 34), "uniform"),
+    ((3, 3, 192, 640, 192, 640), "ego"), ((2, 3, 16, 48, 8, 64), "misaligned"),
 ])
-def test_warp_kernels_match_plain(dev, shape, border):
+def test_warp_kernels_match_plain(dev, shape, kind, border):
     B, C, H, W, Ho, Wo = shape
     g = torch.Generator(device=dev).manual_seed(0)
     img = torch.rand(B, C, H, W, device=dev, generator=g, requires_grad=True)
-    # [-1.2, 1.2]: ~1/6 of the entries per axis lie beyond the border;
-    # clipped to [-1, 1] ("on"), those lie exactly on it.
-    grid = torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2
-    if border == "on":
+    if kind == "ego":
+        grid = ego_motion_grid(B, Ho, Wo, seed=0).to(dev)
+    else:  # [-1.2, 1.2]: ~1/6 of the entries per axis lie beyond the border
+        grid = torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2
+    if border == "on":  # clipped to [-1, 1]: those entries lie exactly on it
         grid = grid.clamp(-1.0, 1.0)
     grid.requires_grad_()
     cot = torch.randn(B, C, Ho, Wo, device=dev, generator=g)
@@ -75,6 +92,17 @@ def test_warp_kernels_match_plain(dev, shape, border):
     out2 = warp.grid_sample(img.detach(), grid)
     (d_grid2,) = torch.autograd.grad(out2, grid, cot)
     torch.testing.assert_close(d_grid2, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+
+    # K2 called directly, with and without d_image, on the grid and gradient
+    # as given (misaligned: 4 bytes off 16-byte alignment).
+    grid_k, cot_k = grid.detach(), cot
+    if kind == "misaligned":
+        grid_k, cot_k = _misaligned(grid_k), _misaligned(cot_k)
+    for need_image_grad in (True, False):
+        d_img_k, d_grid_k = warp.warp_bwd(img.detach(), grid_k, cot_k, need_image_grad)
+        torch.testing.assert_close(d_grid_k, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+        if need_image_grad:
+            torch.testing.assert_close(d_img_k, d_img_p, rtol=0, atol=_scale_tol(d_img_p, 1e-5))
 
 
 def _grid(kind, B, H, W, Ho, Wo, dev, g):
