@@ -91,6 +91,15 @@ def card_rates(name):
     return _RATES[""]
 
 
+def fmt_ms(v):
+    """A device time, or n/a where the profiler saw no device activity."""
+    return "n/a" if v is None else f"{v:.4f}"
+
+
+def mean_ms(values):
+    return None if any(v is None for v in values) else float(np.mean(values))
+
+
 def max_err(a, b):
     return float((a - b).detach().abs().max())
 
@@ -624,9 +633,9 @@ def main():
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} (wall {w[2]:.4f})"
         where = "" if label is None else f" [{label} grid]"
         c_ms, c_lib = cold[(k, label)]
-        lib_cold = "" if c_lib is None else f", library {c_lib:.4f}"
+        lib_cold = "" if lib_ms is None else f", library {fmt_ms(c_lib)}"
         print(f"  {k}{where}: kernel {ms:.4f} (wall {w[0]:.4f}) | plain {plain} "
-              f"| library {lib} | bound {bounds[k][0]:.4f} ({bounds[k][1]}) | cold L2: kernel {c_ms:.4f}{lib_cold}")
+              f"| library {lib} | bound {bounds[k][0]:.4f} ({bounds[k][1]}) | cold L2: kernel {fmt_ms(c_ms)}{lib_cold}")
 
     # ---- 5. the step on the card against the step on the CPU --------------
     small = DynamoConfig(dataset="kitti", height=64, width=96, batch_size=2, weights_init="scratch")
@@ -777,13 +786,12 @@ def main():
             on_step_cold[k].append(device_ms(kernel_fn, cold=True))
             lib_step_cold[k].append(device_ms(lib_fn, cold=True))
         print(f"  grid {i}: {displacement(gr)}; " + ", ".join(
-            f"{k} {on_step[k][i]:.4f} (library {lib_step[k][i]:.4f}; cold L2 {on_step_cold[k][i]:.4f}, "
-            f"library {lib_step_cold[k][i]:.4f})" for k in fns))
+            f"{k} {fmt_ms(on_step[k][i])} (library {fmt_ms(lib_step[k][i])}; cold L2 {fmt_ms(on_step_cold[k][i])}, "
+            f"library {fmt_ms(lib_step_cold[k][i])})" for k in fns))
     for k in on_step:
-        ours, lib = float(np.mean(on_step[k])), float(np.mean(lib_step[k]))
-        print(f"  {k} on the step's grids: mean {ours:.4f} ms, library {lib:.4f} ms "
-              f"({'kernel faster' if ours < lib else 'library faster'}); cold L2: "
-              f"{float(np.mean(on_step_cold[k])):.4f} ms, library {float(np.mean(lib_step_cold[k])):.4f} ms")
+        ours, lib = mean_ms(on_step[k]), mean_ms(lib_step[k])
+        print(f"  {k} on the step's grids: mean {fmt_ms(ours)} ms, library {fmt_ms(lib)} ms; cold L2: "
+              f"{fmt_ms(mean_ms(on_step_cold[k]))} ms, library {fmt_ms(mean_ms(lib_step_cold[k]))} ms")
     del captured, out_lib
 
     # ---- 7. the curriculum from the port's entry point, on tiny_kitti -----
@@ -819,10 +827,9 @@ def main():
             entry.update({"ms_ego_grid": ms_e, "plain_ms_ego_grid": plain_e, "library_ms_ego_grid": lib_e,
                           "wall_ms_ego_grid": wall[(k, "ego")][0],
                           "ms_ego_grid_cold": cold[(k, "ego")][0], "library_ms_ego_grid_cold": cold[(k, "ego")][1],
-                          "ms_step_grids": float(np.mean(on_step[k])),
-                          "library_ms_step_grids": float(np.mean(lib_step[k])),
-                          "ms_step_grids_cold": float(np.mean(on_step_cold[k])),
-                          "library_ms_step_grids_cold": float(np.mean(lib_step_cold[k]))})
+                          "ms_step_grids": mean_ms(on_step[k]), "library_ms_step_grids": mean_ms(lib_step[k]),
+                          "ms_step_grids_cold": mean_ms(on_step_cold[k]),
+                          "library_ms_step_grids_cold": mean_ms(lib_step_cold[k])})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "card": smi}))

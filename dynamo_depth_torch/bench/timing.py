@@ -28,6 +28,9 @@ def median_ms(fn, runs=TIMED_RUNS):
 
 # Written before each call of a cold timing: more than the H100's 50 MB L2.
 L2_FLUSH_BYTES = 64 * 2**20
+# The overwrite is an in-place bitwise not of int32s: a kernel whose name no
+# timed call shares, so the sum can leave it out by name.
+_FLUSH_KERNEL = "bitwise_not"
 
 
 def device_ms(fn, runs=TIMED_RUNS, cold=False):
@@ -41,14 +44,9 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
     overwrite's own kernel is left out of the sum by its name."""
     from torch.profiler import ProfilerActivity, profile
 
-    flush, skip = None, set()
+    flush = None
     if cold:
-        scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
-        flush = scratch.bitwise_not_
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            flush()
-            torch.cuda.synchronize()
-        skip = {e.key for e in prof.key_averages() if self_device_us(e) > 0}
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda").bitwise_not_
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -58,7 +56,10 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
                 flush()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(self_device_us(e) for e in prof.key_averages() if e.key not in skip)
+    events = [e for e in prof.key_averages() if self_device_us(e) > 0]
+    if cold and events and not any(_FLUSH_KERNEL in e.key for e in events):
+        raise RuntimeError(f"device_ms(cold=True): no {_FLUSH_KERNEL} kernel among {[e.key for e in events]}")
+    total_us = sum(self_device_us(e) for e in events if _FLUSH_KERNEL not in e.key)
     return total_us / runs / 1e3 if total_us > 0 else None
 
 

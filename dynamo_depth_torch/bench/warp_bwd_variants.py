@@ -6,12 +6,13 @@
 ``csrc/warp.cu`` exports ``warp_bwd_variant(..., variant, stream)`` beside
 ``warp_bwd`` (variant 0): 0 = 32x4 threads of 2 pixels (64x4 tiles), 1 =
 32x4 threads of 4 pixels (128x4 tiles), 2 = 16x8 threads of 2 pixels (32x8
-tiles), 3 = variant 0 launched as a persistent grid-stride set of blocks.
+tiles), 3 = variant 0 launched as a persistent grid-stride set of blocks,
+4 = variant 0 held to 40 registers a thread (12 blocks on an SM).
 Each variant is held against the plain version (d_grid to 1e-5 of its
 scale, with and without d_image) on the main path's shapes (B=3, C=3,
 192x640) and grids: uniform in [-1.1, 1.1], the ego-motion stand-in, the
 uniform grid clipped to [-1, 1], and the step's own grids where given. Then
-each is timed in turns (0, 1, 2, 3, 3, 2, 1, 0) with ``bench/timing.py``,
+each is timed in turns (0, 1, 2, 3, 4, 4, 3, 2, 1, 0) with ``bench/timing.py``,
 device ms per call from the profiler, with warm and with cold L2. Prints the
 card, one line per variant and grid, and one JSON object last.
 """
@@ -33,7 +34,7 @@ from dynamo_depth_torch.training.synthetic import ego_motion_grid
 
 B, C, H, W = 3, 3, 192, 640
 VARIANTS = {0: "64x4 tiles, 2 px/thread", 1: "128x4 tiles, 4 px/thread", 2: "32x8 tiles, 2 px/thread",
-            3: "64x4 tiles, 2 px/thread, persistent"}
+            3: "64x4 tiles, 2 px/thread, persistent", 4: "64x4 tiles, 2 px/thread, at most 40 registers"}
 
 
 def main(argv=None):

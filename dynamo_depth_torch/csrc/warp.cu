@@ -163,26 +163,84 @@ __device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
   }
 }
 
+struct BwdArgs {
+  const float* __restrict__ img;
+  const float* __restrict__ grid;
+  const float* __restrict__ g_out;
+  float* __restrict__ d_grid;
+  float* __restrict__ d_img;  // null unless kImageGrad
+  int B, C, H, W, Ho, Wo;
+};
+
+// Channels [c0, c0 + N) of a thread's kPX pixels: every gradient and tap
+// load first, then the arithmetic, so that one round trip to memory serves
+// them all. Adds into the pixels' coordinate gradients dwx, dwy.
+template <int N, bool kImageGrad, bool kVec, int kPX>
+__device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, size_t plane0, size_t at,
+                                                  size_t P, size_t HW, int n, const int (&off)[kPX],
+                                                  const Coord (&cx)[kPX], const Coord (&cy)[kPX],
+                                                  float (&dwx)[kPX], float (&dwy)[kPX]) {
+  float go[N][kPX], v[N][kPX][4];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float* gs = a.g_out + (plane0 + i) * P + at;
+    if constexpr (kVec) {
+      load_vec(go[i], gs);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPX; ++k) go[i][k] = k < n ? __ldg(gs + k) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int k = 0; k < kPX; ++k) {
+      const float* s = a.img + (plane0 + i) * HW + off[k];
+      v[i][k][0] = __ldg(s);
+      v[i][k][1] = __ldg(s + 1);
+      v[i][k][2] = __ldg(s + a.W);
+      v[i][k][3] = __ldg(s + a.W + 1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int k = 0; k < kPX; ++k) {
+      const float v00 = v[i][k][0], v01 = v[i][k][1], v10 = v[i][k][2], v11 = v[i][k][3];
+      const float wx = cx[k].w, wy = cy[k].w, g = go[i][k];
+      const float top = v00 + (v01 - v00) * wx;
+      const float bot = v10 + (v11 - v10) * wx;
+      dwy[k] += g * (bot - top);
+      dwx[k] += g * ((1.0f - wy) * (v01 - v00) + wy * (v11 - v10));
+      if constexpr (kImageGrad) {
+        if (k < n) {
+          float* d = a.d_img + (plane0 + i) * HW + off[k];
+          const float gt = g * (1.0f - wy), gb = g * wy;
+          atomicAdd(d, gt * (1.0f - wx));
+          atomicAdd(d + 1, gt * wx);
+          atomicAdd(d + a.W, gb * (1.0f - wx));
+          atomicAdd(d + a.W + 1, gb * wx);
+        }
+      }
+    }
+  }
+}
+
 // The pixels [ox, ox + kPX) of output row oy of batch element b. kC: the
-// channel count, or 0 for one given at run time in C. vec: every pointer is
-// aligned for the vector accesses and Wo % kPX == 0.
-template <int kC, bool kImageGrad, int kPX>
-__device__ __forceinline__ void warp_bwd_pixels(const float* __restrict__ img,
-                                                const float* __restrict__ grid,
-                                                const float* __restrict__ g_out,
-                                                float* __restrict__ d_grid,
-                                                float* __restrict__ d_img, int C, int H, int W,
-                                                int Ho, int Wo, bool vec, int b, int ox, int oy) {
-  if (oy >= Ho || ox >= Wo) return;
-  const int nc = kC > 0 ? kC : C;
-  const int n = min(kPX, Wo - ox);  // this thread's pixels
-  const bool full = vec && n == kPX;
-  const int at = oy * Wo + ox;      // offset within an output plane
-  const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
+// channel count, or 0 for one given at run time. kVec: every pointer is
+// aligned for the vector accesses and Wo % kPX == 0, so a thread's pixels
+// are all inside the row.
+template <int kC, bool kImageGrad, bool kVec, int kPX>
+__device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox, int oy) {
+  if (oy >= a.Ho || ox >= a.Wo) return;
+  const int nc = kC > 0 ? kC : a.C;
+  const int n = kVec ? kPX : min(kPX, a.Wo - ox);  // this thread's pixels
+  const int at = oy * a.Wo + ox;                   // offset within an output plane
+  const size_t HW = static_cast<size_t>(a.H) * a.W, P = static_cast<size_t>(a.Ho) * a.Wo;
 
   float g[2 * kPX];
-  const float* gp = grid + 2 * (b * P + at);
-  if (full) {
+  const float* gp = a.grid + 2 * (b * P + at);
+  if constexpr (kVec) {
     load_vec(g, gp);
   } else {
 #pragma unroll
@@ -192,57 +250,31 @@ __device__ __forceinline__ void warp_bwd_pixels(const float* __restrict__ img,
   Coord cx[kPX], cy[kPX];
 #pragma unroll
   for (int k = 0; k < kPX; ++k) {
-    cx[k] = unnormalize(g[2 * k], W);
-    cy[k] = unnormalize(g[2 * k + 1], H);
-    off[k] = cy[k].i0 * W + cx[k].i0;
+    cx[k] = unnormalize(g[2 * k], a.W);
+    cy[k] = unnormalize(g[2 * k + 1], a.H);
+    off[k] = cy[k].i0 * a.W + cx[k].i0;
   }
 
   float dwx[kPX], dwy[kPX];
 #pragma unroll
   for (int k = 0; k < kPX; ++k) dwx[k] = dwy[k] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < nc; ++c) {
-    const size_t plane = static_cast<size_t>(b) * nc + c;
-    float go[kPX];
-    const float* gs = g_out + plane * P + at;
-    if (full) {
-      load_vec(go, gs);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kPX; ++k) go[k] = k < n ? __ldg(gs + k) : 0.f;
-    }
-    const float* src = img + plane * HW;
-#pragma unroll
-    for (int k = 0; k < kPX; ++k) {
-      const float* s = src + off[k];
-      const float v00 = __ldg(s), v01 = __ldg(s + 1), v10 = __ldg(s + W), v11 = __ldg(s + W + 1);
-      const float wx = cx[k].w, wy = cy[k].w;
-      const float top = v00 + (v01 - v00) * wx;
-      const float bot = v10 + (v11 - v10) * wx;
-      dwy[k] += go[k] * (bot - top);
-      dwx[k] += go[k] * ((1.0f - wy) * (v01 - v00) + wy * (v11 - v10));
-      if constexpr (kImageGrad) {
-        if (k < n) {
-          float* d = d_img + plane * HW + off[k];
-          const float gt = go[k] * (1.0f - wy), gb = go[k] * wy;
-          atomicAdd(d, gt * (1.0f - wx));
-          atomicAdd(d + 1, gt * wx);
-          atomicAdd(d + W, gb * (1.0f - wx));
-          atomicAdd(d + W + 1, gb * wx);
-        }
-      }
-    }
+  const size_t plane0 = static_cast<size_t>(b) * nc;
+  if constexpr (kC > 0) {
+    warp_bwd_channels<kC, kImageGrad, kVec, kPX>(a, plane0, at, P, HW, n, off, cx, cy, dwx, dwy);
+  } else {
+    for (int c = 0; c < nc; ++c)
+      warp_bwd_channels<1, kImageGrad, kVec, kPX>(a, plane0 + c, at, P, HW, n, off, cx, cy, dwx, dwy);
   }
 
-  const float sx = 0.5f * static_cast<float>(W - 1), sy = 0.5f * static_cast<float>(H - 1);
+  const float sx = 0.5f * static_cast<float>(a.W - 1), sy = 0.5f * static_cast<float>(a.H - 1);
   float dg[2 * kPX];
 #pragma unroll
   for (int k = 0; k < kPX; ++k) {
     dg[2 * k] = cx[k].inside * dwx[k] * sx;
     dg[2 * k + 1] = cy[k].inside * dwy[k] * sy;
   }
-  float* dp = d_grid + 2 * (b * P + at);
-  if (full) {
+  float* dp = a.d_grid + 2 * (b * P + at);
+  if constexpr (kVec) {
 #pragma unroll
     for (int i = 0; i < 2 * kPX; i += 4)
       *reinterpret_cast<float4*>(dp + i) = make_float4(dg[i], dg[i + 1], dg[i + 2], dg[i + 3]);
@@ -254,68 +286,61 @@ __device__ __forceinline__ void warp_bwd_pixels(const float* __restrict__ img,
 }
 
 // One kTX*kPX x kTY output tile per block.
-template <int kC, bool kImageGrad, int kTX, int kTY, int kPX>
-__global__ void __launch_bounds__(kTX * kTY)
-    warp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
-                    const float* __restrict__ g_out, float* __restrict__ d_grid,
-                    float* __restrict__ d_img, int C, int H, int W, int Ho, int Wo, bool vec) {
-  warp_bwd_pixels<kC, kImageGrad, kPX>(img, grid, g_out, d_grid, d_img, C, H, W, Ho, Wo, vec,
-                                        blockIdx.z, blockIdx.x * kTX * kPX + threadIdx.x * kPX,
-                                        blockIdx.y * kTY + threadIdx.y);
+template <int kC, bool kImageGrad, bool kVec, int kTX, int kTY, int kPX, int kMinBlocks>
+__global__ void __launch_bounds__(kTX * kTY, kMinBlocks) warp_bwd_kernel(BwdArgs a) {
+  warp_bwd_pixels<kC, kImageGrad, kVec, kPX>(a, blockIdx.z, blockIdx.x * kTX * kPX + threadIdx.x * kPX,
+                                             blockIdx.y * kTY + threadIdx.y);
 }
 
 // The same tiles, walked by a fixed set of blocks (as many as fit on the
 // card at once), each taking every gridDim.x-th tile.
-template <int kC, bool kImageGrad, int kTX, int kTY, int kPX>
-__global__ void __launch_bounds__(kTX * kTY)
-    warp_bwd_kernel_persistent(const float* __restrict__ img, const float* __restrict__ grid,
-                               const float* __restrict__ g_out, float* __restrict__ d_grid,
-                               float* __restrict__ d_img, int B, int C, int H, int W, int Ho,
-                               int Wo, bool vec) {
-  const int tiles_x = (Wo + kTX * kPX - 1) / (kTX * kPX), tiles_y = (Ho + kTY - 1) / kTY;
+template <int kC, bool kImageGrad, bool kVec, int kTX, int kTY, int kPX, int kMinBlocks>
+__global__ void __launch_bounds__(kTX * kTY, kMinBlocks) warp_bwd_kernel_persistent(BwdArgs a) {
+  const int tiles_x = (a.Wo + kTX * kPX - 1) / (kTX * kPX), tiles_y = (a.Ho + kTY - 1) / kTY;
   const int per_plane = tiles_x * tiles_y;
-  for (int t = blockIdx.x; t < B * per_plane; t += gridDim.x) {
+  for (int t = blockIdx.x; t < a.B * per_plane; t += gridDim.x) {
     const int b = t / per_plane, r = t - b * per_plane;
     const int ty = r / tiles_x, tx = r - ty * tiles_x;
-    warp_bwd_pixels<kC, kImageGrad, kPX>(img, grid, g_out, d_grid, d_img, C, H, W, Ho, Wo, vec,
-                                          b, tx * kTX * kPX + threadIdx.x * kPX,
-                                          ty * kTY + threadIdx.y);
+    warp_bwd_pixels<kC, kImageGrad, kVec, kPX>(a, b, tx * kTX * kPX + threadIdx.x * kPX, ty * kTY + threadIdx.y);
   }
 }
 
-template <int kC, bool kImageGrad, int kTX, int kTY, int kPX, bool kPersistent>
-int launch_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
-               float* d_img, int B, int C, int H, int W, int Ho, int Wo, cudaStream_t stream) {
-  const bool vec = Wo % kPX == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(d_grid) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(g_out) % (4 * kPX) == 0;
+template <int kC, bool kImageGrad, bool kVec, int kTX, int kTY, int kPX, int kMinBlocks, bool kPersistent>
+void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const dim3 threads(kTX, kTY);
   if constexpr (kPersistent) {
-    auto kernel = warp_bwd_kernel_persistent<kC, kImageGrad, kTX, kTY, kPX>;
+    auto kernel = warp_bwd_kernel_persistent<kC, kImageGrad, kVec, kTX, kTY, kPX, kMinBlocks>;
     int device = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTX * kTY, 0);
-    const int tiles = ((Wo + kTX * kPX - 1) / (kTX * kPX)) * ((Ho + kTY - 1) / kTY) * B;
+    const int tiles = ((a.Wo + kTX * kPX - 1) / (kTX * kPX)) * ((a.Ho + kTY - 1) / kTY) * a.B;
     const int blocks = std::min(tiles, sms * std::max(per_sm, 1));
-    kernel<<<blocks, threads, 0, stream>>>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, vec);
+    kernel<<<blocks, threads, 0, stream>>>(a);
   } else {
-    const dim3 blocks((Wo + kTX * kPX - 1) / (kTX * kPX), (Ho + kTY - 1) / kTY, B);
-    warp_bwd_kernel<kC, kImageGrad, kTX, kTY, kPX><<<blocks, threads, 0, stream>>>(
-        img, grid, g_out, d_grid, d_img, C, H, W, Ho, Wo, vec);
+    const dim3 blocks((a.Wo + kTX * kPX - 1) / (kTX * kPX), (a.Ho + kTY - 1) / kTY, a.B);
+    warp_bwd_kernel<kC, kImageGrad, kVec, kTX, kTY, kPX, kMinBlocks><<<blocks, threads, 0, stream>>>(a);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-template <int kTX, int kTY, int kPX, bool kPersistent>
-int dispatch_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
-                 float* d_img, int B, int C, int H, int W, int Ho, int Wo, cudaStream_t stream) {
-  if (C == 3) {
-    return d_img ? launch_bwd<3, true, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream)
-                 : launch_bwd<3, false, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
+template <int kC, int kTX, int kTY, int kPX, int kMinBlocks, bool kPersistent>
+void dispatch_vec(const BwdArgs& a, cudaStream_t stream) {
+  const bool vec = a.Wo % kPX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.d_grid) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.g_out) % (4 * kPX) == 0;
+  if (a.d_img != nullptr) {
+    if (vec) launch_bwd<kC, true, true, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+    else launch_bwd<kC, true, false, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+  } else {
+    if (vec) launch_bwd<kC, false, true, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+    else launch_bwd<kC, false, false, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
   }
-  return d_img ? launch_bwd<0, true, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream)
-               : launch_bwd<0, false, kTX, kTY, kPX, kPersistent>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
+}
+
+template <int kTX, int kTY, int kPX, int kMinBlocks, bool kPersistent>
+void dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  if (a.C == 3) dispatch_vec<3, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+  else dispatch_vec<0, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
 }
 
 }  // namespace
@@ -335,18 +360,23 @@ extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, 
 // K2 variants, measured against each other by bench/warp_bwd_variants.py:
 // 0: 32x4 threads, 2 pixels each (64x4 tiles); 1: 32x4 threads, 4 pixels
 // each (128x4 tiles); 2: 16x8 threads, 2 pixels each (32x8 tiles); 3: as 0,
-// with a persistent grid-stride launch.
+// with a persistent grid-stride launch; 4: as 0, with at most 40 registers
+// a thread (12 blocks on an SM: all 1,440 of the main path's in one wave).
 extern "C" int warp_bwd_variant(const float* img, const float* grid, const float* g_out,
                                 float* d_grid, float* d_img, int B, int C, int H, int W, int Ho,
                                 int Wo, int variant, void* stream) {
-  if (B <= 0 || Ho <= 0 || Wo <= 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 1: return dispatch_bwd<32, 4, 4, false>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
-    case 2: return dispatch_bwd<16, 8, 2, false>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
-    case 3: return dispatch_bwd<32, 4, 2, true>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
-    default: return dispatch_bwd<32, 4, 2, false>(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, s);
+  if (B > 0 && Ho > 0 && Wo > 0) {
+    const BwdArgs a{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo};
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (variant) {
+      case 1: dispatch_bwd<32, 4, 4, 1, false>(a, s); break;
+      case 2: dispatch_bwd<16, 8, 2, 1, false>(a, s); break;
+      case 3: dispatch_bwd<32, 4, 2, 1, true>(a, s); break;
+      case 4: dispatch_bwd<32, 4, 2, 12, false>(a, s); break;
+      default: dispatch_bwd<32, 4, 2, 1, false>(a, s); break;
+    }
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
