@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 TIMED_RUNS = 30
+PROFILE_TRIES = 3
 
 
 def median_ms(fn, runs=TIMED_RUNS):
@@ -36,7 +37,8 @@ _FLUSH_KERNEL = "bitwise_not"
 def device_ms(fn, runs=TIMED_RUNS, cold=False):
     """Device time of one call of ``fn``: the sum of the durations of every
     kernel it launches, from torch.profiler (CUPTI), averaged over ``runs``
-    calls after warm-up. None where the profiler saw no device activity.
+    calls after warm-up. None where the profiler saw no device activity, or
+    not every launch, in any of ``PROFILE_TRIES`` sessions.
 
     ``cold``: before each call, overwrite a scratch buffer larger than the L2
     cache, so that the call finds its inputs in device memory, as a kernel
@@ -50,17 +52,21 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if self_device_us(e) > 0]
-    if cold and events and not any(_FLUSH_KERNEL in e.key for e in events):
-        raise RuntimeError(f"device_ms(cold=True): no {_FLUSH_KERNEL} kernel among {[e.key for e in events]}")
-    total_us = sum(self_device_us(e) for e in events if _FLUSH_KERNEL not in e.key)
-    return total_us / runs / 1e3 if total_us > 0 else None
+    # The profiler on the card's machine now and then returns a session
+    # without its kernels: a session counts only when every kernel it saw
+    # ran a whole number of times per call (the overwrite once per call).
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if self_device_us(e) > 0]
+        flushes = sum(e.count for e in events if _FLUSH_KERNEL in e.key)
+        if events and all(e.count % runs == 0 for e in events) and flushes == (runs if cold else 0):
+            return sum(self_device_us(e) for e in events if _FLUSH_KERNEL not in e.key) / runs / 1e3
+    return None
 
 
 def self_device_us(event):

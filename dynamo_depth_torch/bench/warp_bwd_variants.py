@@ -1,20 +1,22 @@
 """Time the variants of K2 (``warp_bwd``) against each other on one card.
 
-    python3 -m dynamo_depth_torch.bench.warp_bwd_variants \\
-        [--step-inputs build/chip_smoke/step_warp_inputs.pt]
+    python3 -m dynamo_depth_torch.bench.warp_bwd_variants [--other build/other]
 
 ``csrc/warp.cu`` exports ``warp_bwd_variant(..., variant, stream)`` beside
-``warp_bwd`` (variant 0): 0 = 32x4 threads of 2 pixels (64x4 tiles), 1 =
-32x4 threads of 4 pixels (128x4 tiles), 2 = 16x8 threads of 2 pixels (32x8
-tiles), 3 = variant 0 launched as a persistent grid-stride set of blocks,
-4 = variant 0 held to 40 registers a thread (12 blocks on an SM).
-Each variant is held against the plain version (d_grid to 1e-5 of its
-scale, with and without d_image) on the main path's shapes (B=3, C=3,
-192x640) and grids: uniform in [-1.1, 1.1], the ego-motion stand-in, the
-uniform grid clipped to [-1, 1], and the step's own grids where given. Then
-each is timed in turns (0, 1, 2, 3, 4, 4, 3, 2, 1, 0) with ``bench/timing.py``,
-device ms per call from the profiler, with warm and with cold L2. Prints the
-card, one line per variant and grid, and one JSON object last.
+``warp_bwd`` (variant 0); ``VARIANTS`` below names each. The script builds
+the main path's ``fine_tune`` step (LiteMono, 192x640, batch 3, float32,
+random weights from seed 0) and captures the six inputs one step feeds the
+warp. Each variant is held against the plain version (d_grid to 1e-5 of its
+scale, with and without d_image) on a uniform grid in [-1.1, 1.1], the
+ego-motion stand-in, the uniform grid clipped to [-1, 1] and the six step
+grids. Then, in turns (0, 1, ..., n-1, n-1, ..., 0), each is timed alone on
+every grid with ``bench/timing.py`` (device ms per call from the profiler,
+warm and cold L2), and inside two profiled steps, with the wrapper's
+``warp_bwd`` sent to that variant (device ms per launch of its six).
+``--other`` adds another checkout's ``warp_bwd`` (built by its own
+``ops/kernels/build.py``, as ``bench/kernel_ab.py`` does) as one more
+contender, named ``other``. Prints the card, one line per variant and
+grid, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -26,24 +28,48 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from dynamo_depth_torch.bench.timing import device_ms
+from dynamo_depth_torch.bench.kernel_ab import _other_build
+from dynamo_depth_torch.bench.timing import device_ms, self_device_us
+from dynamo_depth_torch.config import DynamoConfig
 from dynamo_depth_torch.ops.kernels import build, warp
-from dynamo_depth_torch.training.synthetic import ego_motion_grid
+from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
+from dynamo_depth_torch.training.trainer import Trainer
 
 B, C, H, W = 3, 3, 192, 640
-VARIANTS = {0: "64x4 tiles, 2 px/thread", 1: "128x4 tiles, 4 px/thread", 2: "32x8 tiles, 2 px/thread",
-            3: "64x4 tiles, 2 px/thread, persistent", 4: "64x4 tiles, 2 px/thread, at most 40 registers"}
+VARIANTS = {
+    0: "64x4 tiles, 2 px/thread",
+    1: "128x4 tiles, 4 px/thread, 8 blocks/SM",
+    2: "32x8 tiles, 2 px/thread, 12 blocks/SM",
+    3: "64x4 tiles, 2 px/thread, 12 blocks/SM, persistent",
+    4: "64x4 tiles, 2 px/thread, 12 blocks/SM",
+    5: "64x4 tiles, 2 px/thread, 12 blocks/SM, gradient before grid",
+    6: "64x4 tiles, 2 px/thread, 16 blocks/SM",
+}
+
+
+class _Routed:
+    """The wrapper's library with ``warp_bwd`` sent to one contender."""
+
+    def __init__(self, lib, warp_bwd):
+        self._lib, self.warp_bwd = lib, warp_bwd
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--step-inputs", type=Path, help="the warp's inputs of one step, saved by chip_smoke.py phase 6")
+    ap.add_argument("--steps", type=int, default=2, help="profiled steps per variant and turn")
+    ap.add_argument("--other", type=Path, help="root of another checkout whose warp_bwd joins the contenders")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("warp_bwd_variants: no CUDA device", file=sys.stderr)
         return 1
+    from torch.profiler import ProfilerActivity, profile
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
@@ -52,21 +78,42 @@ def main(argv=None):
     lib.warp_bwd_variant.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.warp_bwd_variant.restype = I
     s = torch.cuda.current_stream().cuda_stream
+    # contender -> C function with warp_bwd's arguments
+    contenders = {v: (lambda *a, v=v: lib.warp_bwd_variant(*a[:-1], v, a[-1])) for v in VARIANTS}
+    names = dict(VARIANTS)
+    if args.other is not None:
+        contenders["other"] = _other_build(args.other.resolve()).load("warp", warp._SIGNATURES).warp_bwd
+        names["other"] = f"warp_bwd of {args.other}"
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    img = torch.rand(B, C, H, W, device="cuda", generator=gen)
-    grid = torch.rand(B, H, W, 2, device="cuda", generator=gen) * 2.2 - 1.1
-    g_warp = torch.randn(B, C, H, W, device="cuda", generator=gen)
+    cfg = DynamoConfig(dataset="kitti", depth_model="litemono", batch_size=B, weights_init="scratch")
+    trainer = Trainer(cfg)
+    batch = trainer.to_device(synthetic_batch(cfg, B, cfg.height, cfg.width))
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    captured, launch_fwd = [], warp.warp_fwd
+
+    def capture(image, gr):
+        captured.append((image.detach().clone(), gr.detach().clone()))
+        return launch_fwd(image, gr)
+
+    trainer.train_step(batch, gen, 0)
+    warp.warp_fwd = capture
+    try:
+        trainer.train_step(batch, gen, 1)
+    finally:
+        warp.warp_fwd = launch_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.rand(B, C, H, W, device="cuda", generator=g)
+    grid = torch.rand(B, H, W, 2, device="cuda", generator=g) * 2.2 - 1.1
+    g_warp = torch.randn(B, C, H, W, device="cuda", generator=g)
     inputs = [("uniform", img, grid), ("ego", img, ego_motion_grid(B, H, W, seed=0).cuda()),
               ("on-border", img, grid.clamp(-1.0, 1.0))]
-    if args.step_inputs is not None:
-        saved = torch.load(args.step_inputs, map_location="cuda")
-        inputs += [(f"step {i}", im, gr) for i, (im, gr) in enumerate(zip(saved["images"], saved["grids"]))]
+    inputs += [(f"step {i}", im, gr) for i, (im, gr) in enumerate(captured)]
 
     def launch(v, im, gr, d_grid, d_img=None):
-        build.check(lib.warp_bwd_variant(im.data_ptr(), gr.data_ptr(), g_warp.data_ptr(), d_grid.data_ptr(),
-                                         None if d_img is None else d_img.data_ptr(), B, C, H, W, H, W, v, s),
-                    f"warp_bwd_variant {v}")
+        build.check(contenders[v](im.data_ptr(), gr.data_ptr(), g_warp.data_ptr(), d_grid.data_ptr(),
+                                  None if d_img is None else d_img.data_ptr(), B, C, H, W, H, W, s),
+                    f"warp_bwd {v}")
 
     errors = {}
     for label, im, gr in inputs:
@@ -74,7 +121,7 @@ def main(argv=None):
         d_img_p, d_grid_p = torch.autograd.grad(warp.grid_sample_plain(im_r, gr_r), (im_r, gr_r), g_warp)
         tol_g = 1e-5 * max(1.0, float(d_grid_p.abs().max()))
         tol_i = 1e-5 * max(1.0, float(d_img_p.abs().max()))
-        for v in VARIANTS:
+        for v in contenders:
             d_grid, d_grid2, d_img = torch.empty_like(gr), torch.empty_like(gr), torch.zeros_like(im)
             launch(v, im, gr, d_grid)
             launch(v, im, gr, d_grid2, d_img)
@@ -85,32 +132,54 @@ def main(argv=None):
             if not (err <= tol_g and err_i <= tol_i):
                 raise SystemExit(f"variant {v} on the {label} grid: d_grid {err:.3e} (tolerance {tol_g:.1e}), "
                                  f"d_image {err_i:.3e} (tolerance {tol_i:.1e})")
-    print(f"all {len(VARIANTS)} variants agree with the plain version on {len(inputs)} grids")
+    print(f"all {len(contenders)} contenders agree with the plain version on {len(inputs)} grids")
 
-    times = {(v, label): {"warm": [], "cold": []} for v in VARIANTS for label, _, _ in inputs}
+    times = {(v, label): {"warm": [], "cold": []} for v in contenders for label, _, _ in inputs}
+    in_step = {v: [] for v in contenders}
     outs = {label: torch.empty_like(gr) for label, _, gr in inputs}
-    for v in [*VARIANTS, *reversed(VARIANTS)]:
+    wrapper_lib = warp._lib
+    for v in [*contenders, *reversed(contenders)]:
         for label, im, gr in inputs:
             fn = lambda v=v, im=im, gr=gr, d=outs[label]: launch(v, im, gr, d)  # noqa: E731
             times[(v, label)]["warm"].append(device_ms(fn))
             times[(v, label)]["cold"].append(device_ms(fn, cold=True))
+        warp._lib = lambda v=v: _Routed(lib, contenders[v])
+        try:
+            for _ in range(args.steps):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    trainer.train_step(batch, gen, 2)
+                    torch.cuda.synchronize()
+                mine = [e for e in prof.key_averages() if "warp_bwd_kernel" in e.key]
+                n = sum(e.count for e in mine)
+                if n == 6:  # else the profiler lost the session's kernels
+                    in_step[v].append(sum(self_device_us(e) for e in mine) / 1e3 / n)
+        finally:
+            warp._lib = wrapper_lib
+
+    def mean(xs):
+        xs = [x for x in xs if x is not None]
+        return float(np.mean(xs)) if xs else None
+
+    def fmt(x):
+        return "n/a" if x is None else f"{x:.5f}"
 
     rows = []
     print(f"device ms per call (profiler; mean of 2 turns), warm L2 / cold L2, B={B} C={C} {H}x{W}, on {smi}:")
     for (v, label), by in times.items():
-        row = {"variant": v, "design": VARIANTS[v], "grid": label, "max_abs_err": errors[(v, label)]}
-        for k in ("warm", "cold"):
-            row[f"{k}_ms"] = sum(by[k]) / len(by[k])
-            row[f"{k}_ms_runs"] = by[k]
+        row = {"variant": v, "design": names[v], "grid": label, "max_abs_err": errors[(v, label)],
+               "warm_ms": mean(by["warm"]), "cold_ms": mean(by["cold"]), "warm_ms_runs": by["warm"],
+               "cold_ms_runs": by["cold"]}
         rows.append(row)
-        print(f"  variant {v} ({VARIANTS[v]}) [{label}]: {row['warm_ms']:.5f} / {row['cold_ms']:.5f}")
-    step = [r for r in rows if r["grid"].startswith("step")]
+        print(f"  variant {v} ({names[v]}) [{label}]: {fmt(row['warm_ms'])} / {fmt(row['cold_ms'])}")
     means = {}
-    for v in VARIANTS:
-        mine = [r for r in step if r["variant"] == v]
-        if mine:
-            means[v] = {k: sum(r[f"{k}_ms"] for r in mine) / len(mine) for k in ("warm", "cold")}
-            print(f"  variant {v} [mean of {len(mine)} step grids]: {means[v]['warm']:.5f} / {means[v]['cold']:.5f}")
+    print("mean over the six step grids, warm / cold, and per launch inside the step:")
+    for v in contenders:
+        mine = [r for r in rows if r["variant"] == v and r["grid"].startswith("step")]
+        means[v] = {"warm": mean([r["warm_ms"] for r in mine]), "cold": mean([r["cold_ms"] for r in mine]),
+                    "in_step": mean(in_step[v]), "in_step_runs": in_step[v]}
+        print(f"  variant {v} ({names[v]}): {fmt(means[v]['warm'])} / {fmt(means[v]['cold'])}; "
+              f"in the step {fmt(means[v]['in_step'])} ({len(in_step[v])} steps)")
     print(json.dumps({"card": smi, "variants": rows, "step_grid_means": means}))
     return 0
 

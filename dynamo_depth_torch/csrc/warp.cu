@@ -172,15 +172,20 @@ struct BwdArgs {
   int B, C, H, W, Ho, Wo;
 };
 
-// Channels [c0, c0 + N) of a thread's kPX pixels: every gradient and tap
-// load first, then the arithmetic, so that one round trip to memory serves
-// them all. Adds into the pixels' coordinate gradients dwx, dwy.
-template <int N, bool kImageGrad, bool kVec, int kPX>
-__device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, size_t plane0, size_t at,
-                                                  size_t P, size_t HW, int n, const int (&off)[kPX],
-                                                  const Coord (&cx)[kPX], const Coord (&cy)[kPX],
-                                                  float (&dwx)[kPX], float (&dwy)[kPX]) {
-  float go[N][kPX], v[N][kPX][4];
+// How K2 is cut and launched: kTX x kTY threads of kPX pixels on a row; at
+// least kMinBlocks blocks on an SM (a cap on registers); a persistent
+// grid-stride launch or one block per tile; the gradient loaded before the
+// grid or with the taps.
+template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst>
+struct Tiling {
+  static constexpr int kTX = TX, kTY = TY, kPX = PX, kMinBlocks = MinBlocks;
+  static constexpr bool kPersistent = Persistent, kGradFirst = GradFirst;
+};
+
+// The gradient of channels [c0, c0 + N) at a thread's kPX pixels.
+template <int N, bool kVec, int kPX>
+__device__ __forceinline__ void load_grad(float (&go)[N][kPX], const BwdArgs& a, size_t plane0,
+                                          size_t at, size_t P, int n) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const float* gs = a.g_out + (plane0 + i) * P + at;
@@ -191,6 +196,18 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, size_t plane
       for (int k = 0; k < kPX; ++k) go[i][k] = k < n ? __ldg(gs + k) : 0.f;
     }
   }
+}
+
+// Channels [c0, c0 + N) of a thread's kPX pixels: every tap load first, then
+// the arithmetic, so that one round trip to memory serves them all. Adds
+// into the pixels' coordinate gradients dwx, dwy.
+template <int N, bool kImageGrad, int kPX>
+__device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float (&go)[N][kPX],
+                                                  size_t plane0, size_t HW, int n,
+                                                  const int (&off)[kPX], const Coord (&cx)[kPX],
+                                                  const Coord (&cy)[kPX], float (&dwx)[kPX],
+                                                  float (&dwy)[kPX]) {
+  float v[N][kPX][4];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -230,14 +247,17 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, size_t plane
 // channel count, or 0 for one given at run time. kVec: every pointer is
 // aligned for the vector accesses and Wo % kPX == 0, so a thread's pixels
 // are all inside the row.
-template <int kC, bool kImageGrad, bool kVec, int kPX>
+template <int kC, bool kImageGrad, bool kVec, int kPX, bool kGradFirst>
 __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox, int oy) {
   if (oy >= a.Ho || ox >= a.Wo) return;
   const int nc = kC > 0 ? kC : a.C;
   const int n = kVec ? kPX : min(kPX, a.Wo - ox);  // this thread's pixels
   const int at = oy * a.Wo + ox;                   // offset within an output plane
   const size_t HW = static_cast<size_t>(a.H) * a.W, P = static_cast<size_t>(a.Ho) * a.Wo;
+  const size_t plane0 = static_cast<size_t>(b) * nc;
 
+  float go[kC > 0 ? kC : 1][kPX];
+  if constexpr (kC > 0 && kGradFirst) load_grad<kC, kVec, kPX>(go, a, plane0, at, P, n);
   float g[2 * kPX];
   const float* gp = a.grid + 2 * (b * P + at);
   if constexpr (kVec) {
@@ -258,12 +278,14 @@ __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox,
   float dwx[kPX], dwy[kPX];
 #pragma unroll
   for (int k = 0; k < kPX; ++k) dwx[k] = dwy[k] = 0.0f;
-  const size_t plane0 = static_cast<size_t>(b) * nc;
   if constexpr (kC > 0) {
-    warp_bwd_channels<kC, kImageGrad, kVec, kPX>(a, plane0, at, P, HW, n, off, cx, cy, dwx, dwy);
+    if constexpr (!kGradFirst) load_grad<kC, kVec, kPX>(go, a, plane0, at, P, n);
+    warp_bwd_channels<kC, kImageGrad, kPX>(a, go, plane0, HW, n, off, cx, cy, dwx, dwy);
   } else {
-    for (int c = 0; c < nc; ++c)
-      warp_bwd_channels<1, kImageGrad, kVec, kPX>(a, plane0 + c, at, P, HW, n, off, cx, cy, dwx, dwy);
+    for (int c = 0; c < nc; ++c) {
+      load_grad<1, kVec, kPX>(go, a, plane0 + c, at, P, n);
+      warp_bwd_channels<1, kImageGrad, kPX>(a, go, plane0 + c, HW, n, off, cx, cy, dwx, dwy);
+    }
   }
 
   const float sx = 0.5f * static_cast<float>(a.W - 1), sy = 0.5f * static_cast<float>(a.H - 1);
@@ -285,62 +307,62 @@ __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox,
   }
 }
 
-// One kTX*kPX x kTY output tile per block.
-template <int kC, bool kImageGrad, bool kVec, int kTX, int kTY, int kPX, int kMinBlocks>
-__global__ void __launch_bounds__(kTX * kTY, kMinBlocks) warp_bwd_kernel(BwdArgs a) {
-  warp_bwd_pixels<kC, kImageGrad, kVec, kPX>(a, blockIdx.z, blockIdx.x * kTX * kPX + threadIdx.x * kPX,
-                                             blockIdx.y * kTY + threadIdx.y);
+// One T::kTX*kPX x kTY output tile per block.
+template <int kC, bool kImageGrad, bool kVec, class T>
+__global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kernel(BwdArgs a) {
+  warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst>(
+      a, blockIdx.z, blockIdx.x * T::kTX * T::kPX + threadIdx.x * T::kPX, blockIdx.y * T::kTY + threadIdx.y);
 }
 
 // The same tiles, walked by a fixed set of blocks (as many as fit on the
 // card at once), each taking every gridDim.x-th tile.
-template <int kC, bool kImageGrad, bool kVec, int kTX, int kTY, int kPX, int kMinBlocks>
-__global__ void __launch_bounds__(kTX * kTY, kMinBlocks) warp_bwd_kernel_persistent(BwdArgs a) {
-  const int tiles_x = (a.Wo + kTX * kPX - 1) / (kTX * kPX), tiles_y = (a.Ho + kTY - 1) / kTY;
+template <int kC, bool kImageGrad, bool kVec, class T>
+__global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kernel_persistent(BwdArgs a) {
+  const int tiles_x = (a.Wo + T::kTX * T::kPX - 1) / (T::kTX * T::kPX), tiles_y = (a.Ho + T::kTY - 1) / T::kTY;
   const int per_plane = tiles_x * tiles_y;
   for (int t = blockIdx.x; t < a.B * per_plane; t += gridDim.x) {
     const int b = t / per_plane, r = t - b * per_plane;
     const int ty = r / tiles_x, tx = r - ty * tiles_x;
-    warp_bwd_pixels<kC, kImageGrad, kVec, kPX>(a, b, tx * kTX * kPX + threadIdx.x * kPX, ty * kTY + threadIdx.y);
+    warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst>(
+        a, b, tx * T::kTX * T::kPX + threadIdx.x * T::kPX, ty * T::kTY + threadIdx.y);
   }
 }
 
-template <int kC, bool kImageGrad, bool kVec, int kTX, int kTY, int kPX, int kMinBlocks, bool kPersistent>
+template <int kC, bool kImageGrad, bool kVec, class T>
 void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 threads(kTX, kTY);
-  if constexpr (kPersistent) {
-    auto kernel = warp_bwd_kernel_persistent<kC, kImageGrad, kVec, kTX, kTY, kPX, kMinBlocks>;
+  const dim3 threads(T::kTX, T::kTY);
+  const int tiles_x = (a.Wo + T::kTX * T::kPX - 1) / (T::kTX * T::kPX), tiles_y = (a.Ho + T::kTY - 1) / T::kTY;
+  if constexpr (T::kPersistent) {
+    auto kernel = warp_bwd_kernel_persistent<kC, kImageGrad, kVec, T>;
     int device = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTX * kTY, 0);
-    const int tiles = ((a.Wo + kTX * kPX - 1) / (kTX * kPX)) * ((a.Ho + kTY - 1) / kTY) * a.B;
-    const int blocks = std::min(tiles, sms * std::max(per_sm, 1));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::kTX * T::kTY, 0);
+    const int blocks = std::min(tiles_x * tiles_y * a.B, sms * std::max(per_sm, 1));
     kernel<<<blocks, threads, 0, stream>>>(a);
   } else {
-    const dim3 blocks((a.Wo + kTX * kPX - 1) / (kTX * kPX), (a.Ho + kTY - 1) / kTY, a.B);
-    warp_bwd_kernel<kC, kImageGrad, kVec, kTX, kTY, kPX, kMinBlocks><<<blocks, threads, 0, stream>>>(a);
+    warp_bwd_kernel<kC, kImageGrad, kVec, T><<<dim3(tiles_x, tiles_y, a.B), threads, 0, stream>>>(a);
   }
 }
 
-template <int kC, int kTX, int kTY, int kPX, int kMinBlocks, bool kPersistent>
+template <int kC, class T>
 void dispatch_vec(const BwdArgs& a, cudaStream_t stream) {
-  const bool vec = a.Wo % kPX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
+  const bool vec = a.Wo % T::kPX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.d_grid) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(a.g_out) % (4 * kPX) == 0;
+                   reinterpret_cast<uintptr_t>(a.g_out) % (4 * T::kPX) == 0;
   if (a.d_img != nullptr) {
-    if (vec) launch_bwd<kC, true, true, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
-    else launch_bwd<kC, true, false, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+    if (vec) launch_bwd<kC, true, true, T>(a, stream);
+    else launch_bwd<kC, true, false, T>(a, stream);
   } else {
-    if (vec) launch_bwd<kC, false, true, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
-    else launch_bwd<kC, false, false, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+    if (vec) launch_bwd<kC, false, true, T>(a, stream);
+    else launch_bwd<kC, false, false, T>(a, stream);
   }
 }
 
-template <int kTX, int kTY, int kPX, int kMinBlocks, bool kPersistent>
+template <class T>
 void dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  if (a.C == 3) dispatch_vec<3, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
-  else dispatch_vec<0, kTX, kTY, kPX, kMinBlocks, kPersistent>(a, stream);
+  if (a.C == 3) dispatch_vec<3, T>(a, stream);
+  else dispatch_vec<0, T>(a, stream);
 }
 
 }  // namespace
@@ -357,11 +379,9 @@ extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 variants, measured against each other by bench/warp_bwd_variants.py:
-// 0: 32x4 threads, 2 pixels each (64x4 tiles); 1: 32x4 threads, 4 pixels
-// each (128x4 tiles); 2: 16x8 threads, 2 pixels each (32x8 tiles); 3: as 0,
-// with a persistent grid-stride launch; 4: as 0, with at most 40 registers
-// a thread (12 blocks on an SM: all 1,440 of the main path's in one wave).
+// K2 variants, measured against each other by bench/warp_bwd_variants.py
+// (Tiling<threads x, threads y, pixels per thread, least blocks per SM,
+// persistent, gradient first>).
 extern "C" int warp_bwd_variant(const float* img, const float* grid, const float* g_out,
                                 float* d_grid, float* d_img, int B, int C, int H, int W, int Ho,
                                 int Wo, int variant, void* stream) {
@@ -369,11 +389,13 @@ extern "C" int warp_bwd_variant(const float* img, const float* grid, const float
     const BwdArgs a{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo};
     const auto s = static_cast<cudaStream_t>(stream);
     switch (variant) {
-      case 1: dispatch_bwd<32, 4, 4, 1, false>(a, s); break;
-      case 2: dispatch_bwd<16, 8, 2, 1, false>(a, s); break;
-      case 3: dispatch_bwd<32, 4, 2, 1, true>(a, s); break;
-      case 4: dispatch_bwd<32, 4, 2, 12, false>(a, s); break;
-      default: dispatch_bwd<32, 4, 2, 1, false>(a, s); break;
+      case 1: dispatch_bwd<Tiling<32, 4, 4, 8, false, false>>(a, s); break;
+      case 2: dispatch_bwd<Tiling<16, 8, 2, 12, false, false>>(a, s); break;
+      case 3: dispatch_bwd<Tiling<32, 4, 2, 12, true, false>>(a, s); break;
+      case 4: dispatch_bwd<Tiling<32, 4, 2, 12, false, false>>(a, s); break;
+      case 5: dispatch_bwd<Tiling<32, 4, 2, 12, false, true>>(a, s); break;
+      case 6: dispatch_bwd<Tiling<32, 4, 2, 16, false, false>>(a, s); break;
+      default: dispatch_bwd<Tiling<32, 4, 2, 1, false, false>>(a, s); break;
     }
   }
   return static_cast<int>(cudaGetLastError());
