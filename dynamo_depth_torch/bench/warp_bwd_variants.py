@@ -47,6 +47,13 @@ VARIANTS = {
     4: "64x4 tiles, 2 px/thread, 12 blocks/SM",
     5: "64x4 tiles, 2 px/thread, 12 blocks/SM, gradient before grid",
     6: "64x4 tiles, 2 px/thread, 16 blocks/SM",
+    7: "32x8 tiles, 2 px/thread, 12 blocks/SM, gradient before grid",
+    8: "64x4 tiles, 2 px/thread, 12 blocks/SM, taps cached in L2 only",
+    9: "64x4 tiles, 2 px/thread, 12 blocks/SM, taps cached in L1 and L2",
+    10: "32x8 tiles, 2 px/thread, 12 blocks/SM, taps cached in L1 and L2",
+    11: "32x4 tiles, 2 px/thread, 24 blocks/SM",
+    12: "16x8 tiles, 2 px/thread, 24 blocks/SM",
+    13: "32x16 tiles, 2 px/thread, 6 blocks/SM",
 }
 
 
@@ -64,6 +71,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=2, help="profiled steps per variant and turn")
     ap.add_argument("--other", type=Path, help="root of another checkout whose warp_bwd joins the contenders")
+    ap.add_argument("--variants", type=lambda x: [int(v) for v in x.split(",")], default=list(VARIANTS),
+                    help="comma-separated variants to run (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("warp_bwd_variants: no CUDA device", file=sys.stderr)
@@ -79,7 +88,7 @@ def main(argv=None):
     lib.warp_bwd_variant.restype = I
     s = torch.cuda.current_stream().cuda_stream
     # contender -> C function with warp_bwd's arguments
-    contenders = {v: (lambda *a, v=v: lib.warp_bwd_variant(*a[:-1], v, a[-1])) for v in VARIANTS}
+    contenders = {v: (lambda *a, v=v: lib.warp_bwd_variant(*a[:-1], v, a[-1])) for v in args.variants}
     names = dict(VARIANTS)
     if args.other is not None:
         contenders["other"] = _other_build(args.other.resolve()).load("warp", warp._SIGNATURES).warp_bwd

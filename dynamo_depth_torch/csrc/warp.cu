@@ -175,12 +175,20 @@ struct BwdArgs {
 // How K2 is cut and launched: kTX x kTY threads of kPX pixels on a row; at
 // least kMinBlocks blocks on an SM (a cap on registers); a persistent
 // grid-stride launch or one block per tile; the gradient loaded before the
-// grid or with the taps.
-template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst>
+// grid or with the taps; taps loaded through the read-only path (0), cached
+// in L1 and L2 (1) or in L2 only (2).
+template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst, int Load = 0>
 struct Tiling {
-  static constexpr int kTX = TX, kTY = TY, kPX = PX, kMinBlocks = MinBlocks;
+  static constexpr int kTX = TX, kTY = TY, kPX = PX, kMinBlocks = MinBlocks, kLoad = Load;
   static constexpr bool kPersistent = Persistent, kGradFirst = GradFirst;
 };
+
+template <int kLoad>
+__device__ __forceinline__ float load_tap(const float* p) {
+  if constexpr (kLoad == 1) return __ldca(p);
+  else if constexpr (kLoad == 2) return __ldcg(p);
+  else return __ldg(p);
+}
 
 // The gradient of channels [c0, c0 + N) at a thread's kPX pixels.
 template <int N, bool kVec, int kPX>
@@ -201,7 +209,7 @@ __device__ __forceinline__ void load_grad(float (&go)[N][kPX], const BwdArgs& a,
 // Channels [c0, c0 + N) of a thread's kPX pixels: every tap load first, then
 // the arithmetic, so that one round trip to memory serves them all. Adds
 // into the pixels' coordinate gradients dwx, dwy.
-template <int N, bool kImageGrad, int kPX>
+template <int N, bool kImageGrad, int kPX, int kLoad>
 __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float (&go)[N][kPX],
                                                   size_t plane0, size_t HW, int n,
                                                   const int (&off)[kPX], const Coord (&cx)[kPX],
@@ -213,10 +221,10 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float 
 #pragma unroll
     for (int k = 0; k < kPX; ++k) {
       const float* s = a.img + (plane0 + i) * HW + off[k];
-      v[i][k][0] = __ldg(s);
-      v[i][k][1] = __ldg(s + 1);
-      v[i][k][2] = __ldg(s + a.W);
-      v[i][k][3] = __ldg(s + a.W + 1);
+      v[i][k][0] = load_tap<kLoad>(s);
+      v[i][k][1] = load_tap<kLoad>(s + 1);
+      v[i][k][2] = load_tap<kLoad>(s + a.W);
+      v[i][k][3] = load_tap<kLoad>(s + a.W + 1);
     }
   }
 #pragma unroll
@@ -247,7 +255,7 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float 
 // channel count, or 0 for one given at run time. kVec: every pointer is
 // aligned for the vector accesses and Wo % kPX == 0, so a thread's pixels
 // are all inside the row.
-template <int kC, bool kImageGrad, bool kVec, int kPX, bool kGradFirst>
+template <int kC, bool kImageGrad, bool kVec, int kPX, bool kGradFirst, int kLoad>
 __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox, int oy) {
   if (oy >= a.Ho || ox >= a.Wo) return;
   const int nc = kC > 0 ? kC : a.C;
@@ -280,11 +288,11 @@ __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox,
   for (int k = 0; k < kPX; ++k) dwx[k] = dwy[k] = 0.0f;
   if constexpr (kC > 0) {
     if constexpr (!kGradFirst) load_grad<kC, kVec, kPX>(go, a, plane0, at, P, n);
-    warp_bwd_channels<kC, kImageGrad, kPX>(a, go, plane0, HW, n, off, cx, cy, dwx, dwy);
+    warp_bwd_channels<kC, kImageGrad, kPX, kLoad>(a, go, plane0, HW, n, off, cx, cy, dwx, dwy);
   } else {
     for (int c = 0; c < nc; ++c) {
       load_grad<1, kVec, kPX>(go, a, plane0 + c, at, P, n);
-      warp_bwd_channels<1, kImageGrad, kPX>(a, go, plane0 + c, HW, n, off, cx, cy, dwx, dwy);
+      warp_bwd_channels<1, kImageGrad, kPX, kLoad>(a, go, plane0 + c, HW, n, off, cx, cy, dwx, dwy);
     }
   }
 
@@ -310,7 +318,7 @@ __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox,
 // One T::kTX*kPX x kTY output tile per block.
 template <int kC, bool kImageGrad, bool kVec, class T>
 __global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kernel(BwdArgs a) {
-  warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst>(
+  warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad>(
       a, blockIdx.z, blockIdx.x * T::kTX * T::kPX + threadIdx.x * T::kPX, blockIdx.y * T::kTY + threadIdx.y);
 }
 
@@ -323,7 +331,7 @@ __global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kerne
   for (int t = blockIdx.x; t < a.B * per_plane; t += gridDim.x) {
     const int b = t / per_plane, r = t - b * per_plane;
     const int ty = r / tiles_x, tx = r - ty * tiles_x;
-    warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst>(
+    warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad>(
         a, b, tx * T::kTX * T::kPX + threadIdx.x * T::kPX, ty * T::kTY + threadIdx.y);
   }
 }
@@ -395,6 +403,13 @@ extern "C" int warp_bwd_variant(const float* img, const float* grid, const float
       case 4: dispatch_bwd<Tiling<32, 4, 2, 12, false, false>>(a, s); break;
       case 5: dispatch_bwd<Tiling<32, 4, 2, 12, false, true>>(a, s); break;
       case 6: dispatch_bwd<Tiling<32, 4, 2, 16, false, false>>(a, s); break;
+      case 7: dispatch_bwd<Tiling<16, 8, 2, 12, false, true>>(a, s); break;
+      case 8: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 2>>(a, s); break;
+      case 9: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 1>>(a, s); break;
+      case 10: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 1>>(a, s); break;
+      case 11: dispatch_bwd<Tiling<16, 4, 2, 24, false, false>>(a, s); break;
+      case 12: dispatch_bwd<Tiling<8, 8, 2, 24, false, false>>(a, s); break;
+      case 13: dispatch_bwd<Tiling<16, 16, 2, 6, false, false>>(a, s); break;
       default: dispatch_bwd<Tiling<32, 4, 2, 1, false, false>>(a, s); break;
     }
   }
