@@ -54,6 +54,10 @@ VARIANTS = {
     11: "32x4 tiles, 2 px/thread, 24 blocks/SM",
     12: "16x8 tiles, 2 px/thread, 24 blocks/SM",
     13: "32x16 tiles, 2 px/thread, 6 blocks/SM",
+    14: "32x8 tiles, 2 px/thread, 12 blocks/SM, gradient before grid, most L1",
+    15: "32x8 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time",
+    16: "32x8 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time, most L1",
+    17: "64x4 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time",
 }
 
 

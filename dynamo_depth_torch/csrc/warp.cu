@@ -176,11 +176,15 @@ struct BwdArgs {
 // least kMinBlocks blocks on an SM (a cap on registers); a persistent
 // grid-stride launch or one block per tile; the gradient loaded before the
 // grid or with the taps; taps loaded through the read-only path (0), cached
-// in L1 and L2 (1) or in L2 only (2).
-template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst, int Load = 0>
+// in L1 and L2 (1) or in L2 only (2); one channel's loads at a time (a
+// loop) or all channels' at once; the SM's unified memory set to the most
+// L1 or left to the driver.
+template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst, int Load = 0,
+          bool PerChannel = false, bool MaxL1 = false>
 struct Tiling {
   static constexpr int kTX = TX, kTY = TY, kPX = PX, kMinBlocks = MinBlocks, kLoad = Load;
-  static constexpr bool kPersistent = Persistent, kGradFirst = GradFirst;
+  static constexpr bool kPersistent = Persistent, kGradFirst = GradFirst, kPerChannel = PerChannel,
+                        kMaxL1 = MaxL1;
 };
 
 template <int kLoad>
@@ -255,7 +259,7 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float 
 // channel count, or 0 for one given at run time. kVec: every pointer is
 // aligned for the vector accesses and Wo % kPX == 0, so a thread's pixels
 // are all inside the row.
-template <int kC, bool kImageGrad, bool kVec, int kPX, bool kGradFirst, int kLoad>
+template <int kC, bool kImageGrad, bool kVec, int kPX, bool kGradFirst, int kLoad, bool kPerChannel>
 __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox, int oy) {
   if (oy >= a.Ho || ox >= a.Wo) return;
   const int nc = kC > 0 ? kC : a.C;
@@ -286,7 +290,14 @@ __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox,
   float dwx[kPX], dwy[kPX];
 #pragma unroll
   for (int k = 0; k < kPX; ++k) dwx[k] = dwy[k] = 0.0f;
-  if constexpr (kC > 0) {
+  if constexpr (kC > 0 && kPerChannel) {
+#pragma unroll 1
+    for (int c = 0; c < kC; ++c) {
+      float g1[1][kPX];
+      load_grad<1, kVec, kPX>(g1, a, plane0 + c, at, P, n);
+      warp_bwd_channels<1, kImageGrad, kPX, kLoad>(a, g1, plane0 + c, HW, n, off, cx, cy, dwx, dwy);
+    }
+  } else if constexpr (kC > 0) {
     if constexpr (!kGradFirst) load_grad<kC, kVec, kPX>(go, a, plane0, at, P, n);
     warp_bwd_channels<kC, kImageGrad, kPX, kLoad>(a, go, plane0, HW, n, off, cx, cy, dwx, dwy);
   } else {
@@ -318,7 +329,7 @@ __device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox,
 // One T::kTX*kPX x kTY output tile per block.
 template <int kC, bool kImageGrad, bool kVec, class T>
 __global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kernel(BwdArgs a) {
-  warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad>(
+  warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad, T::kPerChannel>(
       a, blockIdx.z, blockIdx.x * T::kTX * T::kPX + threadIdx.x * T::kPX, blockIdx.y * T::kTY + threadIdx.y);
 }
 
@@ -331,7 +342,7 @@ __global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kerne
   for (int t = blockIdx.x; t < a.B * per_plane; t += gridDim.x) {
     const int b = t / per_plane, r = t - b * per_plane;
     const int ty = r / tiles_x, tx = r - ty * tiles_x;
-    warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad>(
+    warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad, T::kPerChannel>(
         a, b, tx * T::kTX * T::kPX + threadIdx.x * T::kPX, ty * T::kTY + threadIdx.y);
   }
 }
@@ -349,7 +360,12 @@ void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
     const int blocks = std::min(tiles_x * tiles_y * a.B, sms * std::max(per_sm, 1));
     kernel<<<blocks, threads, 0, stream>>>(a);
   } else {
-    warp_bwd_kernel<kC, kImageGrad, kVec, T><<<dim3(tiles_x, tiles_y, a.B), threads, 0, stream>>>(a);
+    auto kernel = warp_bwd_kernel<kC, kImageGrad, kVec, T>;
+    if constexpr (T::kMaxL1) {
+      static const bool set = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 0) == cudaSuccess;
+      (void)set;
+    }
+    kernel<<<dim3(tiles_x, tiles_y, a.B), threads, 0, stream>>>(a);
   }
 }
 
@@ -410,6 +426,10 @@ extern "C" int warp_bwd_variant(const float* img, const float* grid, const float
       case 11: dispatch_bwd<Tiling<16, 4, 2, 24, false, false>>(a, s); break;
       case 12: dispatch_bwd<Tiling<8, 8, 2, 24, false, false>>(a, s); break;
       case 13: dispatch_bwd<Tiling<16, 16, 2, 6, false, false>>(a, s); break;
+      case 14: dispatch_bwd<Tiling<16, 8, 2, 12, false, true, 0, false, true>>(a, s); break;
+      case 15: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 0, true>>(a, s); break;
+      case 16: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 0, true, true>>(a, s); break;
+      case 17: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 0, true>>(a, s); break;
       default: dispatch_bwd<Tiling<32, 4, 2, 1, false, false>>(a, s); break;
     }
   }
