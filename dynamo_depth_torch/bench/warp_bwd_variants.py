@@ -58,6 +58,10 @@ VARIANTS = {
     15: "32x8 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time",
     16: "32x8 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time, most L1",
     17: "64x4 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time",
+    18: "32x8 tiles, 2 px/thread, 12 blocks/SM, gradient before grid, tap pairs in 16-byte loads",
+    19: "32x8 tiles, 2 px/thread, 12 blocks/SM, one channel's loads at a time, tap pairs in 16-byte loads",
+    20: "32x8 tiles, 2 px/thread, gradient before grid, tap pairs in 16-byte loads",
+    21: "64x4 tiles, 2 px/thread, 12 blocks/SM, gradient before grid, tap pairs in 16-byte loads",
 }
 
 

@@ -176,7 +176,8 @@ struct BwdArgs {
 // least kMinBlocks blocks on an SM (a cap on registers); a persistent
 // grid-stride launch or one block per tile; the gradient loaded before the
 // grid or with the taps; taps loaded through the read-only path (0), cached
-// in L1 and L2 (1) or in L2 only (2); one channel's loads at a time (a
+// in L1 and L2 (1) or in L2 only (2) or, through the read-only path, each
+// row's pair from one aligned 16-byte load (3); one channel's loads at a time (a
 // loop) or all channels' at once; the SM's unified memory set to the most
 // L1 or left to the driver.
 template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst, int Load = 0,
@@ -186,6 +187,18 @@ struct Tiling {
   static constexpr bool kPersistent = Persistent, kGradFirst = GradFirst, kPerChannel = PerChannel,
                         kMaxL1 = MaxL1;
 };
+
+// The two taps p[0], p[1] of one row: one 16-byte load of the aligned float4
+// that holds p[0], and p[1] alone where it lies in the next one (the image
+// 16-byte aligned and its size a multiple of 4 floats).
+__device__ __forceinline__ void load_pair(const float* p, float& x0, float& x1) {
+  const uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  const float4 q = __ldg(reinterpret_cast<const float4*>(u & ~uintptr_t(15)));
+  const int j = static_cast<int>((u >> 2) & 3);
+  const float next = j == 3 ? __ldg(p + 1) : 0.0f;
+  x0 = j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+  x1 = j == 0 ? q.y : j == 1 ? q.z : j == 2 ? q.w : next;
+}
 
 template <int kLoad>
 __device__ __forceinline__ float load_tap(const float* p) {
@@ -225,10 +238,15 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float 
 #pragma unroll
     for (int k = 0; k < kPX; ++k) {
       const float* s = a.img + (plane0 + i) * HW + off[k];
-      v[i][k][0] = load_tap<kLoad>(s);
-      v[i][k][1] = load_tap<kLoad>(s + 1);
-      v[i][k][2] = load_tap<kLoad>(s + a.W);
-      v[i][k][3] = load_tap<kLoad>(s + a.W + 1);
+      if constexpr (kLoad == 3) {
+        load_pair(s, v[i][k][0], v[i][k][1]);
+        load_pair(s + a.W, v[i][k][2], v[i][k][3]);
+      } else {
+        v[i][k][0] = load_tap<kLoad>(s);
+        v[i][k][1] = load_tap<kLoad>(s + 1);
+        v[i][k][2] = load_tap<kLoad>(s + a.W);
+        v[i][k][3] = load_tap<kLoad>(s + a.W + 1);
+      }
     }
   }
 #pragma unroll
@@ -385,8 +403,16 @@ void dispatch_vec(const BwdArgs& a, cudaStream_t stream) {
 
 template <class T>
 void dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  if (a.C == 3) dispatch_vec<3, T>(a, stream);
-  else dispatch_vec<0, T>(a, stream);
+  using Scalar = Tiling<T::kTX, T::kTY, T::kPX, T::kMinBlocks, T::kPersistent, T::kGradFirst, 0,
+                        T::kPerChannel, T::kMaxL1>;
+  if (T::kLoad == 3 && (reinterpret_cast<uintptr_t>(a.img) % 16 != 0 ||
+                        static_cast<size_t>(a.B) * a.C * a.H * a.W % 4 != 0)) {
+    if (a.C == 3) dispatch_vec<3, Scalar>(a, stream);
+    else dispatch_vec<0, Scalar>(a, stream);
+  } else {
+    if (a.C == 3) dispatch_vec<3, T>(a, stream);
+    else dispatch_vec<0, T>(a, stream);
+  }
 }
 
 }  // namespace
@@ -430,6 +456,10 @@ extern "C" int warp_bwd_variant(const float* img, const float* grid, const float
       case 15: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 0, true>>(a, s); break;
       case 16: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 0, true, true>>(a, s); break;
       case 17: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 0, true>>(a, s); break;
+      case 18: dispatch_bwd<Tiling<16, 8, 2, 12, false, true, 3>>(a, s); break;
+      case 19: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 3, true>>(a, s); break;
+      case 20: dispatch_bwd<Tiling<16, 8, 2, 1, false, true, 3>>(a, s); break;
+      case 21: dispatch_bwd<Tiling<32, 4, 2, 12, false, true, 3>>(a, s); break;
       default: dispatch_bwd<Tiling<32, 4, 2, 1, false, false>>(a, s); break;
     }
   }
