@@ -39,24 +39,34 @@
 // bytes (8 of grid, 12 of taps, 12 of gradient in; 8 of d_grid out) against
 // ~44 float32 operations.
 //
-// K2, designed for Hopper (K1's tiling, so both visit the source in the same
-// order and a tile's rows share their source rows in L1):
-// - Tile: a block of 32x4 threads owns a 64x4 output tile, batch on
-//   blockIdx.z, 32-bit offsets within a plane.
+// K2, designed for Hopper:
+// - Tile: a block of 16x8 threads owns a 32x8 output tile, batch on
+//   blockIdx.z; offsets within a plane are 32-bit, with no 64-bit division.
+//   On the main path's grids this square tile reads a smaller source window
+//   than K1's 64x4 one, and more of its taps hit L1.
 // - Per-thread work: 2 neighbouring output pixels of one row: one 16-byte
 //   load of their grid points, one 8-byte load of their gradient per
-//   channel, one 16-byte store of their four d_grid values; scalar accesses
-//   for odd Wo, at the ragged right edge and where a pointer is not aligned.
-// - The channel count is a template parameter: the C = 3 instance is fully
-//   unrolled, so the gradient loads (which do not depend on the grid), then
-//   all 12 taps of both pixels, are in flight before the arithmetic. A
-//   generic instance takes the channel count at run time.
-// - d_image is a second template parameter. The main path's instance has no
+//   channel, one 16-byte store of their four d_grid values. Odd Wo, and a
+//   grid, gradient or d_grid off that alignment, take an instance with
+//   scalar accesses.
+// - Loads before arithmetic: the C = 3 instance issues its 3 gradient loads,
+//   then the grid's, then all 24 taps of its 2 pixels, then the arithmetic:
+//   two round trips to memory. A generic instance takes the channel count at
+//   run time and loads one channel at a time.
+// - 40 registers a thread (__launch_bounds__ asks for 12 blocks on an SM),
+//   so the main path's 1,440 blocks fit the 132 SMs in one wave; left to
+//   itself the compiler took 56 (9 blocks on an SM, 1.2 waves).
+// - d_image is a template parameter. The main path's instance has no
 //   atomics; the other scatter-adds the transpose of the four taps into a
 //   zeroed buffer with atomicAdd, so its sums run in no fixed order.
 // - The coordinate gradient is zero where the clamp saturates (the coordinate
 //   lies outside [0, size-1]) and half where it lies exactly on 0 or size-1,
 //   as jnp.clip's.
+// Measured and dropped (PERF.md): 64x4 tiles, 4 pixels a thread, a
+// persistent grid-stride launch, 32 or 56 registers, the gradient loaded
+// with the taps, one channel's loads at a time (closest to the old kernel on
+// a uniform random grid, slower on the main path's), taps cached in L2 only,
+// each tap row's pair from one 16-byte load, the most L1 by carve-out.
 //
 // Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out and g_out
 // (B, C, Ho, Wo), d_grid (B, Ho, Wo, 2); all float32, contiguous. H, W >= 2;
@@ -64,7 +74,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -73,6 +82,12 @@ namespace {
 constexpr int FWD_TX = 32, FWD_TY = 4;  // threads per block
 constexpr int FWD_PX = 2;               // output pixels per thread, along a row
 constexpr int FWD_TW = FWD_TX * FWD_PX; // output tile width (64); height FWD_TY
+
+// K2 tiling.
+constexpr int BWD_TX = 16, BWD_TY = 8;   // threads per block
+constexpr int BWD_PX = 2;                // output pixels per thread, along a row
+constexpr int BWD_TW = BWD_TX * BWD_PX;  // output tile width (32); height BWD_TY
+constexpr int BWD_BLOCKS_PER_SM = 12;    // holds a thread to 40 registers
 
 struct Coord {
   int i0;        // tap origin, in [0, size - 2]
@@ -168,91 +183,57 @@ struct BwdArgs {
   const float* __restrict__ grid;
   const float* __restrict__ g_out;
   float* __restrict__ d_grid;
-  float* __restrict__ d_img;  // null unless kImageGrad
+  float* __restrict__ d_img;  // null unless the image needs a gradient
   int B, C, H, W, Ho, Wo;
 };
 
-// How K2 is cut and launched: kTX x kTY threads of kPX pixels on a row; at
-// least kMinBlocks blocks on an SM (a cap on registers); a persistent
-// grid-stride launch or one block per tile; the gradient loaded before the
-// grid or with the taps; taps loaded through the read-only path (0), cached
-// in L1 and L2 (1) or in L2 only (2) or, through the read-only path, each
-// row's pair from one aligned 16-byte load (3); one channel's loads at a time (a
-// loop) or all channels' at once; the SM's unified memory set to the most
-// L1 or left to the driver.
-template <int TX, int TY, int PX, int MinBlocks, bool Persistent, bool GradFirst, int Load = 0,
-          bool PerChannel = false, bool MaxL1 = false>
-struct Tiling {
-  static constexpr int kTX = TX, kTY = TY, kPX = PX, kMinBlocks = MinBlocks, kLoad = Load;
-  static constexpr bool kPersistent = Persistent, kGradFirst = GradFirst, kPerChannel = PerChannel,
-                        kMaxL1 = MaxL1;
+// A thread's place: its first pixel at offset `at` of an output plane, `n`
+// pixels inside the row, channel planes from `plane0` on.
+struct BwdPixels {
+  size_t plane0, at, P, HW;
+  int n;
 };
 
-// The two taps p[0], p[1] of one row: one 16-byte load of the aligned float4
-// that holds p[0], and p[1] alone where it lies in the next one (the image
-// 16-byte aligned and its size a multiple of 4 floats).
-__device__ __forceinline__ void load_pair(const float* p, float& x0, float& x1) {
-  const uintptr_t u = reinterpret_cast<uintptr_t>(p);
-  const float4 q = __ldg(reinterpret_cast<const float4*>(u & ~uintptr_t(15)));
-  const int j = static_cast<int>((u >> 2) & 3);
-  const float next = j == 3 ? __ldg(p + 1) : 0.0f;
-  x0 = j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
-  x1 = j == 0 ? q.y : j == 1 ? q.z : j == 2 ? q.w : next;
-}
-
-template <int kLoad>
-__device__ __forceinline__ float load_tap(const float* p) {
-  if constexpr (kLoad == 1) return __ldca(p);
-  else if constexpr (kLoad == 2) return __ldcg(p);
-  else return __ldg(p);
-}
-
-// The gradient of channels [c0, c0 + N) at a thread's kPX pixels.
-template <int N, bool kVec, int kPX>
-__device__ __forceinline__ void load_grad(float (&go)[N][kPX], const BwdArgs& a, size_t plane0,
-                                          size_t at, size_t P, int n) {
+// The gradient of N channels from plane0 at a thread's pixels.
+template <int N, bool kVec>
+__device__ __forceinline__ void load_grad(float (&go)[N][BWD_PX], const BwdArgs& a, const BwdPixels& px,
+                                          size_t plane0) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const float* gs = a.g_out + (plane0 + i) * P + at;
+    const float* gs = a.g_out + (plane0 + i) * px.P + px.at;
     if constexpr (kVec) {
       load_vec(go[i], gs);
     } else {
 #pragma unroll
-      for (int k = 0; k < kPX; ++k) go[i][k] = k < n ? __ldg(gs + k) : 0.f;
+      for (int k = 0; k < BWD_PX; ++k) go[i][k] = k < px.n ? __ldg(gs + k) : 0.f;
     }
   }
 }
 
-// Channels [c0, c0 + N) of a thread's kPX pixels: every tap load first, then
-// the arithmetic, so that one round trip to memory serves them all. Adds
-// into the pixels' coordinate gradients dwx, dwy.
-template <int N, bool kImageGrad, int kPX, int kLoad>
-__device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float (&go)[N][kPX],
-                                                  size_t plane0, size_t HW, int n,
-                                                  const int (&off)[kPX], const Coord (&cx)[kPX],
-                                                  const Coord (&cy)[kPX], float (&dwx)[kPX],
-                                                  float (&dwy)[kPX]) {
-  float v[N][kPX][4];
+// N channels from plane0 of a thread's pixels, with their gradient go: every
+// tap load first, then the arithmetic, so that one round trip to memory
+// serves them all. Adds into the pixels' coordinate gradients dwx, dwy.
+template <int N, bool kImageGrad>
+__device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPixels& px, size_t plane0,
+                                                  const float (&go)[N][BWD_PX], const int (&off)[BWD_PX],
+                                                  const Coord (&cx)[BWD_PX], const Coord (&cy)[BWD_PX],
+                                                  float (&dwx)[BWD_PX], float (&dwy)[BWD_PX]) {
+  float v[N][BWD_PX][4];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int k = 0; k < kPX; ++k) {
-      const float* s = a.img + (plane0 + i) * HW + off[k];
-      if constexpr (kLoad == 3) {
-        load_pair(s, v[i][k][0], v[i][k][1]);
-        load_pair(s + a.W, v[i][k][2], v[i][k][3]);
-      } else {
-        v[i][k][0] = load_tap<kLoad>(s);
-        v[i][k][1] = load_tap<kLoad>(s + 1);
-        v[i][k][2] = load_tap<kLoad>(s + a.W);
-        v[i][k][3] = load_tap<kLoad>(s + a.W + 1);
-      }
+    for (int k = 0; k < BWD_PX; ++k) {
+      const float* s = a.img + (plane0 + i) * px.HW + off[k];
+      v[i][k][0] = __ldg(s);
+      v[i][k][1] = __ldg(s + 1);
+      v[i][k][2] = __ldg(s + a.W);
+      v[i][k][3] = __ldg(s + a.W + 1);
     }
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int k = 0; k < kPX; ++k) {
+    for (int k = 0; k < BWD_PX; ++k) {
       const float v00 = v[i][k][0], v01 = v[i][k][1], v10 = v[i][k][2], v11 = v[i][k][3];
       const float wx = cx[k].w, wy = cy[k].w, g = go[i][k];
       const float top = v00 + (v01 - v00) * wx;
@@ -260,8 +241,8 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float 
       dwy[k] += g * (bot - top);
       dwx[k] += g * ((1.0f - wy) * (v01 - v00) + wy * (v11 - v10));
       if constexpr (kImageGrad) {
-        if (k < n) {
-          float* d = a.d_img + (plane0 + i) * HW + off[k];
+        if (k < px.n) {
+          float* d = a.d_img + (plane0 + i) * px.HW + off[k];
           const float gt = g * (1.0f - wy), gb = g * wy;
           atomicAdd(d, gt * (1.0f - wx));
           atomicAdd(d + 1, gt * wx);
@@ -273,145 +254,85 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const float 
   }
 }
 
-// The pixels [ox, ox + kPX) of output row oy of batch element b. kC: the
-// channel count, or 0 for one given at run time. kVec: every pointer is
-// aligned for the vector accesses and Wo % kPX == 0, so a thread's pixels
-// are all inside the row.
-template <int kC, bool kImageGrad, bool kVec, int kPX, bool kGradFirst, int kLoad, bool kPerChannel>
-__device__ __forceinline__ void warp_bwd_pixels(const BwdArgs& a, int b, int ox, int oy) {
+// kC: the channel count, or 0 for one given at run time. kVec: the grid,
+// gradient and d_grid are aligned for the vector accesses and Wo is even, so
+// a thread's pixels are both inside the row.
+template <int kC, bool kImageGrad, bool kVec>
+__global__ void __launch_bounds__(BWD_TX * BWD_TY, BWD_BLOCKS_PER_SM) warp_bwd_kernel(BwdArgs a) {
+  const int b = blockIdx.z;
+  const int ox = blockIdx.x * BWD_TW + threadIdx.x * BWD_PX;
+  const int oy = blockIdx.y * BWD_TY + threadIdx.y;
   if (oy >= a.Ho || ox >= a.Wo) return;
   const int nc = kC > 0 ? kC : a.C;
-  const int n = kVec ? kPX : min(kPX, a.Wo - ox);  // this thread's pixels
-  const int at = oy * a.Wo + ox;                   // offset within an output plane
-  const size_t HW = static_cast<size_t>(a.H) * a.W, P = static_cast<size_t>(a.Ho) * a.Wo;
-  const size_t plane0 = static_cast<size_t>(b) * nc;
+  BwdPixels px;
+  px.n = kVec ? BWD_PX : min(BWD_PX, a.Wo - ox);
+  px.at = oy * a.Wo + ox;
+  px.P = static_cast<size_t>(a.Ho) * a.Wo;
+  px.HW = static_cast<size_t>(a.H) * a.W;
+  px.plane0 = static_cast<size_t>(b) * nc;
 
-  float go[kC > 0 ? kC : 1][kPX];
-  if constexpr (kC > 0 && kGradFirst) load_grad<kC, kVec, kPX>(go, a, plane0, at, P, n);
-  float g[2 * kPX];
-  const float* gp = a.grid + 2 * (b * P + at);
+  // The gradient does not depend on the grid: its loads go first.
+  float go[kC > 0 ? kC : 1][BWD_PX];
+  if constexpr (kC > 0) load_grad<kC, kVec>(go, a, px, px.plane0);
+  float g[2 * BWD_PX];
+  const float* gp = a.grid + 2 * (b * px.P + px.at);
   if constexpr (kVec) {
     load_vec(g, gp);
   } else {
 #pragma unroll
-    for (int k = 0; k < 2 * kPX; ++k) g[k] = k < 2 * n ? __ldg(gp + k) : 0.f;
+    for (int k = 0; k < 2 * BWD_PX; ++k) g[k] = k < 2 * px.n ? __ldg(gp + k) : 0.f;
   }
-  int off[kPX];  // tap origin within an image plane
-  Coord cx[kPX], cy[kPX];
+  int off[BWD_PX];  // tap origin within an image plane
+  Coord cx[BWD_PX], cy[BWD_PX];
 #pragma unroll
-  for (int k = 0; k < kPX; ++k) {
+  for (int k = 0; k < BWD_PX; ++k) {
     cx[k] = unnormalize(g[2 * k], a.W);
     cy[k] = unnormalize(g[2 * k + 1], a.H);
     off[k] = cy[k].i0 * a.W + cx[k].i0;
   }
 
-  float dwx[kPX], dwy[kPX];
+  float dwx[BWD_PX], dwy[BWD_PX];
 #pragma unroll
-  for (int k = 0; k < kPX; ++k) dwx[k] = dwy[k] = 0.0f;
-  if constexpr (kC > 0 && kPerChannel) {
-#pragma unroll 1
-    for (int c = 0; c < kC; ++c) {
-      float g1[1][kPX];
-      load_grad<1, kVec, kPX>(g1, a, plane0 + c, at, P, n);
-      warp_bwd_channels<1, kImageGrad, kPX, kLoad>(a, g1, plane0 + c, HW, n, off, cx, cy, dwx, dwy);
-    }
-  } else if constexpr (kC > 0) {
-    if constexpr (!kGradFirst) load_grad<kC, kVec, kPX>(go, a, plane0, at, P, n);
-    warp_bwd_channels<kC, kImageGrad, kPX, kLoad>(a, go, plane0, HW, n, off, cx, cy, dwx, dwy);
+  for (int k = 0; k < BWD_PX; ++k) dwx[k] = dwy[k] = 0.0f;
+  if constexpr (kC > 0) {
+    warp_bwd_channels<kC, kImageGrad>(a, px, px.plane0, go, off, cx, cy, dwx, dwy);
   } else {
     for (int c = 0; c < nc; ++c) {
-      load_grad<1, kVec, kPX>(go, a, plane0 + c, at, P, n);
-      warp_bwd_channels<1, kImageGrad, kPX, kLoad>(a, go, plane0 + c, HW, n, off, cx, cy, dwx, dwy);
+      load_grad<1, kVec>(go, a, px, px.plane0 + c);
+      warp_bwd_channels<1, kImageGrad>(a, px, px.plane0 + c, go, off, cx, cy, dwx, dwy);
     }
   }
 
   const float sx = 0.5f * static_cast<float>(a.W - 1), sy = 0.5f * static_cast<float>(a.H - 1);
-  float dg[2 * kPX];
+  float dg[2 * BWD_PX];
 #pragma unroll
-  for (int k = 0; k < kPX; ++k) {
+  for (int k = 0; k < BWD_PX; ++k) {
     dg[2 * k] = cx[k].inside * dwx[k] * sx;
     dg[2 * k + 1] = cy[k].inside * dwy[k] * sy;
   }
-  float* dp = a.d_grid + 2 * (b * P + at);
+  float* dp = a.d_grid + 2 * (b * px.P + px.at);
   if constexpr (kVec) {
-#pragma unroll
-    for (int i = 0; i < 2 * kPX; i += 4)
-      *reinterpret_cast<float4*>(dp + i) = make_float4(dg[i], dg[i + 1], dg[i + 2], dg[i + 3]);
+    *reinterpret_cast<float4*>(dp) = make_float4(dg[0], dg[1], dg[2], dg[3]);
   } else {
 #pragma unroll
-    for (int k = 0; k < 2 * kPX; ++k)
-      if (k < 2 * n) dp[k] = dg[k];
+    for (int k = 0; k < 2 * BWD_PX; ++k)
+      if (k < 2 * px.n) dp[k] = dg[k];
   }
 }
 
-// One T::kTX*kPX x kTY output tile per block.
-template <int kC, bool kImageGrad, bool kVec, class T>
-__global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kernel(BwdArgs a) {
-  warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad, T::kPerChannel>(
-      a, blockIdx.z, blockIdx.x * T::kTX * T::kPX + threadIdx.x * T::kPX, blockIdx.y * T::kTY + threadIdx.y);
-}
-
-// The same tiles, walked by a fixed set of blocks (as many as fit on the
-// card at once), each taking every gridDim.x-th tile.
-template <int kC, bool kImageGrad, bool kVec, class T>
-__global__ void __launch_bounds__(T::kTX * T::kTY, T::kMinBlocks) warp_bwd_kernel_persistent(BwdArgs a) {
-  const int tiles_x = (a.Wo + T::kTX * T::kPX - 1) / (T::kTX * T::kPX), tiles_y = (a.Ho + T::kTY - 1) / T::kTY;
-  const int per_plane = tiles_x * tiles_y;
-  for (int t = blockIdx.x; t < a.B * per_plane; t += gridDim.x) {
-    const int b = t / per_plane, r = t - b * per_plane;
-    const int ty = r / tiles_x, tx = r - ty * tiles_x;
-    warp_bwd_pixels<kC, kImageGrad, kVec, T::kPX, T::kGradFirst, T::kLoad, T::kPerChannel>(
-        a, b, tx * T::kTX * T::kPX + threadIdx.x * T::kPX, ty * T::kTY + threadIdx.y);
-  }
-}
-
-template <int kC, bool kImageGrad, bool kVec, class T>
+template <int kC>
 void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 threads(T::kTX, T::kTY);
-  const int tiles_x = (a.Wo + T::kTX * T::kPX - 1) / (T::kTX * T::kPX), tiles_y = (a.Ho + T::kTY - 1) / T::kTY;
-  if constexpr (T::kPersistent) {
-    auto kernel = warp_bwd_kernel_persistent<kC, kImageGrad, kVec, T>;
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::kTX * T::kTY, 0);
-    const int blocks = std::min(tiles_x * tiles_y * a.B, sms * std::max(per_sm, 1));
-    kernel<<<blocks, threads, 0, stream>>>(a);
-  } else {
-    auto kernel = warp_bwd_kernel<kC, kImageGrad, kVec, T>;
-    if constexpr (T::kMaxL1) {
-      static const bool set = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 0) == cudaSuccess;
-      (void)set;
-    }
-    kernel<<<dim3(tiles_x, tiles_y, a.B), threads, 0, stream>>>(a);
-  }
-}
-
-template <int kC, class T>
-void dispatch_vec(const BwdArgs& a, cudaStream_t stream) {
-  const bool vec = a.Wo % T::kPX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
+  const dim3 blocks((a.Wo + BWD_TW - 1) / BWD_TW, (a.Ho + BWD_TY - 1) / BWD_TY, a.B);
+  const dim3 threads(BWD_TX, BWD_TY);
+  const bool vec = a.Wo % BWD_PX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.d_grid) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(a.g_out) % (4 * T::kPX) == 0;
+                   reinterpret_cast<uintptr_t>(a.g_out) % (4 * BWD_PX) == 0;
   if (a.d_img != nullptr) {
-    if (vec) launch_bwd<kC, true, true, T>(a, stream);
-    else launch_bwd<kC, true, false, T>(a, stream);
+    if (vec) warp_bwd_kernel<kC, true, true><<<blocks, threads, 0, stream>>>(a);
+    else warp_bwd_kernel<kC, true, false><<<blocks, threads, 0, stream>>>(a);
   } else {
-    if (vec) launch_bwd<kC, false, true, T>(a, stream);
-    else launch_bwd<kC, false, false, T>(a, stream);
-  }
-}
-
-template <class T>
-void dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  using Scalar = Tiling<T::kTX, T::kTY, T::kPX, T::kMinBlocks, T::kPersistent, T::kGradFirst, 0,
-                        T::kPerChannel, T::kMaxL1>;
-  if (T::kLoad == 3 && (reinterpret_cast<uintptr_t>(a.img) % 16 != 0 ||
-                        static_cast<size_t>(a.B) * a.C * a.H * a.W % 4 != 0)) {
-    if (a.C == 3) dispatch_vec<3, Scalar>(a, stream);
-    else dispatch_vec<0, Scalar>(a, stream);
-  } else {
-    if (a.C == 3) dispatch_vec<3, T>(a, stream);
-    else dispatch_vec<0, T>(a, stream);
+    if (vec) warp_bwd_kernel<kC, false, true><<<blocks, threads, 0, stream>>>(a);
+    else warp_bwd_kernel<kC, false, false><<<blocks, threads, 0, stream>>>(a);
   }
 }
 
@@ -429,44 +350,13 @@ extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 variants, measured against each other by bench/warp_bwd_variants.py
-// (Tiling<threads x, threads y, pixels per thread, least blocks per SM,
-// persistent, gradient first>).
-extern "C" int warp_bwd_variant(const float* img, const float* grid, const float* g_out,
-                                float* d_grid, float* d_img, int B, int C, int H, int W, int Ho,
-                                int Wo, int variant, void* stream) {
+extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
+                        float* d_img, int B, int C, int H, int W, int Ho, int Wo, void* stream) {
   if (B > 0 && Ho > 0 && Wo > 0) {
     const BwdArgs a{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo};
     const auto s = static_cast<cudaStream_t>(stream);
-    switch (variant) {
-      case 1: dispatch_bwd<Tiling<32, 4, 4, 8, false, false>>(a, s); break;
-      case 2: dispatch_bwd<Tiling<16, 8, 2, 12, false, false>>(a, s); break;
-      case 3: dispatch_bwd<Tiling<32, 4, 2, 12, true, false>>(a, s); break;
-      case 4: dispatch_bwd<Tiling<32, 4, 2, 12, false, false>>(a, s); break;
-      case 5: dispatch_bwd<Tiling<32, 4, 2, 12, false, true>>(a, s); break;
-      case 6: dispatch_bwd<Tiling<32, 4, 2, 16, false, false>>(a, s); break;
-      case 7: dispatch_bwd<Tiling<16, 8, 2, 12, false, true>>(a, s); break;
-      case 8: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 2>>(a, s); break;
-      case 9: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 1>>(a, s); break;
-      case 10: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 1>>(a, s); break;
-      case 11: dispatch_bwd<Tiling<16, 4, 2, 24, false, false>>(a, s); break;
-      case 12: dispatch_bwd<Tiling<8, 8, 2, 24, false, false>>(a, s); break;
-      case 13: dispatch_bwd<Tiling<16, 16, 2, 6, false, false>>(a, s); break;
-      case 14: dispatch_bwd<Tiling<16, 8, 2, 12, false, true, 0, false, true>>(a, s); break;
-      case 15: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 0, true>>(a, s); break;
-      case 16: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 0, true, true>>(a, s); break;
-      case 17: dispatch_bwd<Tiling<32, 4, 2, 12, false, false, 0, true>>(a, s); break;
-      case 18: dispatch_bwd<Tiling<16, 8, 2, 12, false, true, 3>>(a, s); break;
-      case 19: dispatch_bwd<Tiling<16, 8, 2, 12, false, false, 3, true>>(a, s); break;
-      case 20: dispatch_bwd<Tiling<16, 8, 2, 1, false, true, 3>>(a, s); break;
-      case 21: dispatch_bwd<Tiling<32, 4, 2, 12, false, true, 3>>(a, s); break;
-      default: dispatch_bwd<Tiling<32, 4, 2, 1, false, false>>(a, s); break;
-    }
+    if (C == 3) launch_bwd<3>(a, s);
+    else launch_bwd<0>(a, s);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
-                        float* d_img, int B, int C, int H, int W, int Ho, int Wo, void* stream) {
-  return warp_bwd_variant(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, 0, stream);
 }

@@ -6,12 +6,13 @@ has no CPU mode). On the card:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Shapes are chosen for the edges of the kernels' tiling: widths that are not
-multiples of the tiles (64 for K1, K2 and K4, K3's 30-column warp bands) or
-of K1's and K2's 2-pixel and K4's 16-byte vectors, one pixel past a tile
-(65), heights not multiples of K1's and K2's 4-row tiles, K3's 8-row strips,
-K4's 16-row tile or its 4-row strips, the smallest images (2 and 3 pixels,
-where every pixel is a reflected border), one to four channels (K2 has an
-unrolled instance for three and a generic one for the others). K2 also runs
+multiples of the tiles (64 for K1 and K4, 32 for K2, K3's 30-column warp
+bands) or of K1's and K2's 2-pixel and K4's 16-byte vectors, one pixel past
+a tile (33, 65), heights not multiples of K1's 4-row and K2's 8-row tiles,
+K3's 8-row strips, K4's 16-row tile or its 4-row strips, the smallest images
+(2 and 3 pixels, where every pixel is a reflected border), one to four
+channels (K2 has an unrolled instance for three and a generic one for the
+others). K2 also runs
 at the main path's size on the ego-motion grid, and with its grid and
 gradient 4 bytes off 16-byte alignment, where it takes scalar accesses. K1
 is also run on grids at both ends of locality: near the identity

@@ -35,8 +35,9 @@ def _port_grid_sample(img, grid, g):
 
 @pytest.mark.parametrize("jax_fn", [jw.grid_sample, grid_sample_pallas], ids=["xla", "pallas"])
 # (B, H, W, C, Ho, Wo): the last three at the edges of the card kernels'
-# tiles (64x4 output tiles of 2-pixel pairs): odd Wo below 64 with Ho not a
-# multiple of 4, Wo one past a tile, two channels.
+# tiles (2-pixel pairs on 64x4 output tiles forward, 32x8 backward): Wo one
+# past a backward tile with Ho not a multiple of 4, Wo one past a forward
+# tile, two channels.
 @pytest.mark.parametrize("shape", [
     (2, 9, 13, 3, 7, 11), (1, 6, 5, 3, 12, 10), (2, 4, 4, 2, 4, 4),
     (1, 9, 40, 3, 5, 33), (1, 6, 70, 3, 3, 65), (2, 7, 9, 2, 6, 10),
