@@ -187,10 +187,10 @@ struct BwdArgs {
   int B, C, H, W, Ho, Wo;
 };
 
-// A thread's place: its first pixel at offset `at` of an output plane, `n`
-// pixels inside the row, channel planes from `plane0` on.
+// A thread's pixels: the first at offset `at` of an output plane, `n` of
+// them inside the row; P and HW are the output and image plane sizes.
 struct BwdPixels {
-  size_t plane0, at, P, HW;
+  size_t at, P, HW;
   int n;
 };
 
@@ -269,11 +269,11 @@ __global__ void __launch_bounds__(BWD_TX * BWD_TY, BWD_BLOCKS_PER_SM) warp_bwd_k
   px.at = oy * a.Wo + ox;
   px.P = static_cast<size_t>(a.Ho) * a.Wo;
   px.HW = static_cast<size_t>(a.H) * a.W;
-  px.plane0 = static_cast<size_t>(b) * nc;
+  const size_t plane0 = static_cast<size_t>(b) * nc;  // the first channel's plane
 
   // The gradient does not depend on the grid: its loads go first.
   float go[kC > 0 ? kC : 1][BWD_PX];
-  if constexpr (kC > 0) load_grad<kC, kVec>(go, a, px, px.plane0);
+  if constexpr (kC > 0) load_grad<kC, kVec>(go, a, px, plane0);
   float g[2 * BWD_PX];
   const float* gp = a.grid + 2 * (b * px.P + px.at);
   if constexpr (kVec) {
@@ -295,11 +295,11 @@ __global__ void __launch_bounds__(BWD_TX * BWD_TY, BWD_BLOCKS_PER_SM) warp_bwd_k
 #pragma unroll
   for (int k = 0; k < BWD_PX; ++k) dwx[k] = dwy[k] = 0.0f;
   if constexpr (kC > 0) {
-    warp_bwd_channels<kC, kImageGrad>(a, px, px.plane0, go, off, cx, cy, dwx, dwy);
+    warp_bwd_channels<kC, kImageGrad>(a, px, plane0, go, off, cx, cy, dwx, dwy);
   } else {
     for (int c = 0; c < nc; ++c) {
-      load_grad<1, kVec>(go, a, px, px.plane0 + c);
-      warp_bwd_channels<1, kImageGrad>(a, px, px.plane0 + c, go, off, cx, cy, dwx, dwy);
+      load_grad<1, kVec>(go, a, px, plane0 + c);
+      warp_bwd_channels<1, kImageGrad>(a, px, plane0 + c, go, off, cx, cy, dwx, dwy);
     }
   }
 
