@@ -37,8 +37,8 @@ _FLUSH_KERNEL = "bitwise_not"
 def device_ms(fn, runs=TIMED_RUNS, cold=False):
     """Device time of one call of ``fn``: the sum of the durations of every
     kernel it launches, from torch.profiler (CUPTI), averaged over ``runs``
-    calls after warm-up. None where the profiler saw no device activity, or
-    not every launch, in any of ``PROFILE_TRIES`` sessions.
+    calls after warm-up. None where the profiler saw no device activity in
+    any of ``PROFILE_TRIES`` sessions.
 
     ``cold``: before each call, overwrite a scratch buffer larger than the L2
     cache, so that the call finds its inputs in device memory, as a kernel
@@ -53,8 +53,9 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
         fn()
     torch.cuda.synchronize()
     # The profiler on the card's machine now and then returns a session
-    # without its kernels: a session counts only when every kernel it saw
-    # ran a whole number of times per call (the overwrite once per call).
+    # without its kernels, or with a few launches of the session before: each
+    # kernel counts as its mean duration times its launches per call, and an
+    # empty session is taken again.
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
@@ -62,10 +63,13 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
                     flush()
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if self_device_us(e) > 0]
-        flushes = sum(e.count for e in events if _FLUSH_KERNEL in e.key)
-        if events and all(e.count % runs == 0 for e in events) and flushes == (runs if cold else 0):
-            return sum(self_device_us(e) for e in events if _FLUSH_KERNEL not in e.key) / runs / 1e3
+        total_us = sum(
+            self_device_us(e) / e.count * round(e.count / runs)
+            for e in prof.key_averages()
+            if self_device_us(e) > 0 and _FLUSH_KERNEL not in e.key
+        )
+        if total_us > 0:
+            return total_us / 1e3
     return None
 
 

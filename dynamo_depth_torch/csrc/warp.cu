@@ -53,9 +53,11 @@
 //   then the grid's, then all 24 taps of its 2 pixels, then the arithmetic:
 //   two round trips to memory. A generic instance takes the channel count at
 //   run time and loads one channel at a time.
-// - 40 registers a thread (__launch_bounds__ asks for 12 blocks on an SM),
-//   so the main path's 1,440 blocks fit the 132 SMs in one wave; left to
-//   itself the compiler took 56 (9 blocks on an SM, 1.2 waves).
+// - 40 registers a thread, with no spill (__launch_bounds__ asks for 12
+//   blocks on an SM), so the main path's 1,440 blocks fit the 132 SMs in one
+//   wave; left to itself the compiler took 56 (9 blocks on an SM, 1.2
+//   waves). The d_image instances are left to the compiler: held to 40, they
+//   spilled.
 // - d_image is a template parameter. The main path's instance has no
 //   atomics; the other scatter-adds the transpose of the four taps into a
 //   zeroed buffer with atomicAdd, so its sums run in no fixed order.
@@ -87,7 +89,7 @@ constexpr int FWD_TW = FWD_TX * FWD_PX; // output tile width (64); height FWD_TY
 constexpr int BWD_TX = 16, BWD_TY = 8;   // threads per block
 constexpr int BWD_PX = 2;                // output pixels per thread, along a row
 constexpr int BWD_TW = BWD_TX * BWD_PX;  // output tile width (32); height BWD_TY
-constexpr int BWD_BLOCKS_PER_SM = 12;    // holds a thread to 40 registers
+constexpr int BWD_BLOCKS_PER_SM = 12;    // holds a thread to 40 registers (without d_image)
 
 struct Coord {
   int i0;        // tap origin, in [0, size - 2]
@@ -258,7 +260,7 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPix
 // gradient and d_grid are aligned for the vector accesses and Wo is even, so
 // a thread's pixels are both inside the row.
 template <int kC, bool kImageGrad, bool kVec>
-__global__ void __launch_bounds__(BWD_TX * BWD_TY, BWD_BLOCKS_PER_SM) warp_bwd_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(BWD_TX * BWD_TY, kImageGrad ? 1 : BWD_BLOCKS_PER_SM) warp_bwd_kernel(BwdArgs a) {
   const int b = blockIdx.z;
   const int ox = blockIdx.x * BWD_TW + threadIdx.x * BWD_PX;
   const int oy = blockIdx.y * BWD_TY + threadIdx.y;
