@@ -49,15 +49,18 @@
 //   channel, one 16-byte store of their four d_grid values. Odd Wo, and a
 //   grid, gradient or d_grid off that alignment, take an instance with
 //   scalar accesses.
-// - Loads before arithmetic: the C = 3 instance issues its 3 gradient loads,
-//   then the grid's, then all 24 taps of its 2 pixels, then the arithmetic:
-//   two round trips to memory. A generic instance takes the channel count at
-//   run time and loads one channel at a time.
+// - Loads before arithmetic: the C = 3 instance is unrolled, its source
+//   asks for the 3 gradient loads, then the grid's, then all 24 taps of its
+//   2 pixels, then the arithmetic. Held to 40 registers, ptxas issues the
+//   grid load first and then the 24 tap and 3 gradient loads in groups
+//   between the lerps (264 instructions: one LDG.E.128, three LDG.E.64, 24
+//   LDG.E, one STG.E.128, no call). A generic instance takes the channel
+//   count at run time and loads one channel at a time.
 // - 40 registers a thread, with no spill (__launch_bounds__ asks for 12
 //   blocks on an SM), so the main path's 1,440 blocks fit the 132 SMs in one
 //   wave; left to itself the compiler took 56 (9 blocks on an SM, 1.2
-//   waves). The d_image instances are left to the compiler: held to 40, they
-//   spilled.
+//   waves), slower in the step. The d_image instances are left to the
+//   compiler (71-92 registers): held to 40, they spilled.
 // - d_image is a template parameter. The main path's instance has no
 //   atomics; the other scatter-adds the transpose of the four taps into a
 //   zeroed buffer with atomicAdd, so its sums run in no fixed order.
