@@ -216,8 +216,8 @@ __device__ __forceinline__ void load_grad(float (&go)[N][BWD_PX], const BwdArgs&
 }
 
 // N channels from plane0 of a thread's pixels, with their gradient go: every
-// tap load first, then the arithmetic, so that one round trip to memory
-// serves them all. Adds into the pixels' coordinate gradients dwx, dwy.
+// tap load first, then the arithmetic, so that the loads share their trips
+// to memory. Adds into the pixels' coordinate gradients dwx, dwy.
 template <int N, bool kImageGrad>
 __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPixels& px, size_t plane0,
                                                   const float (&go)[N][BWD_PX], const int (&off)[BWD_PX],
@@ -263,7 +263,8 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPix
 // gradient and d_grid are aligned for the vector accesses and Wo is even, so
 // a thread's pixels are both inside the row.
 template <int kC, bool kImageGrad, bool kVec>
-__global__ void __launch_bounds__(BWD_TX * BWD_TY, kImageGrad ? 1 : BWD_BLOCKS_PER_SM) warp_bwd_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(BWD_TX * BWD_TY, kImageGrad ? 1 : BWD_BLOCKS_PER_SM)
+    warp_bwd_kernel(BwdArgs a) {
   const int b = blockIdx.z;
   const int ox = blockIdx.x * BWD_TW + threadIdx.x * BWD_PX;
   const int oy = blockIdx.y * BWD_TY + threadIdx.y;
