@@ -53,8 +53,8 @@ Phases (any failure exits non-zero, nothing is caught):
    ``build/chip_smoke/data``, visualize on ``tiny_waymo`` and the quick demo
    on ``tiny_nuscenes``'s non-edge frame; all of it again on the CPU, each
    record of the card's held against the CPU's (depth tables to 0.001,
-   tp/fp/fn to 1e-3 of the pixels, precision/recall/f1 to 1e-3, thresholds
-   and FP tally equal, odometry to 1e-4 relative, frames within one level on
+   tp/fp/fn and the FP tally to 1e-3 of the pixels, precision/recall/f1 to
+   1e-3, thresholds equal, odometry to 1e-4 relative, frames within one level on
    99.9% of the pixels); no launch of the four kernels during the card's
    run, its peak memory, the plot files written and not written, and
    ``Trainer.predict``'s device ms per batch for each of its three flag
@@ -377,14 +377,17 @@ def run_eval(smi, folder, work):
 
     mc, mp = card["mot_seg"], cpu["mot_seg"]
     zc, zp = np.load(mc["npz"]), np.load(mp["npz"])
-    if not np.array_equal(zc["thrds"], zp["thrds"]) or mc["fp_tally"] != mp["fp_tally"]:
-        raise SystemExit(f"mot_seg: thresholds or FP tally differ: {mc['fp_tally']} vs {mp['fp_tally']}")
+    if not np.array_equal(zc["thrds"], zp["thrds"]) or mc["fp_tally"].keys() != mp["fp_tally"].keys():
+        raise SystemExit(f"mot_seg: thresholds or FP tally categories differ: {mc['fp_tally']} vs {mp['fp_tally']}")
     pixels = 1280 * 1920  # the one non-edge frame at Waymo's full resolution
     agree("mot_seg tp/fp/fn (fraction of the pixels)",
           max(float(np.abs(mc[k] - mp[k]).max()) for k in ("tp", "fp", "fn")) / pixels, 1e-3)
     agree("mot_seg precision/recall/f1", max(float(np.abs(zc[k] - zp[k]).max()) for k in ("precision", "recall", "f1")),
           1e-3)
-    print(f"  mot_seg FP tally equal: {({str(k): int(v) for k, v in mc['fp_tally'].items()})}")
+    # The tally counts the same false-positive pixels as fp, and a mask value
+    # near the threshold moves across it with round-off just as there.
+    agree(f"mot_seg FP tally {({str(k): int(v) for k, v in mc['fp_tally'].items()})} (fraction of the pixels)",
+          max(abs(int(mc["fp_tally"][k]) - int(mp["fp_tally"][k])) for k in mc["fp_tally"]) / pixels, 1e-3)
 
     oc, op = np.load(card["odometry"]["npy"]), np.load(cpu["odometry"]["npy"])
     if oc.shape != op.shape or oc.shape[0] == 0:

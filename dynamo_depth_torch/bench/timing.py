@@ -38,7 +38,7 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
     """Device time of one call of ``fn``: the sum of the durations of every
     kernel it launches, from torch.profiler (CUPTI), averaged over ``runs``
     calls after warm-up. None where the profiler saw no device activity in
-    any of ``PROFILE_TRIES`` sessions.
+    any of ``PROFILE_TRIES`` profiled runs.
 
     ``cold``: before each call, overwrite a scratch buffer larger than the L2
     cache, so that the call finds its inputs in device memory, as a kernel
@@ -52,10 +52,10 @@ def device_ms(fn, runs=TIMED_RUNS, cold=False):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # The profiler on the card's machine now and then returns a session
-    # without its kernels, or with a few launches of the session before: each
+    # The profiler on the card's machine now and then returns a profiled run
+    # without its kernels, or with a few launches of the run before: each
     # kernel counts as its mean duration times its launches per call, and an
-    # empty session is taken again.
+    # empty run is profiled again.
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
