@@ -67,6 +67,14 @@ def _lite_depth_decoder_path(prefix: str, scales) -> Optional[Tuple[str, ...]]:
     return (f"dispconv_{scales[idx - 6]}", "conv")
 
 
+def _depth_decoder_path(prefix: str) -> Optional[Tuple[str, ...]]:
+    m = re.fullmatch(r"(upconv_\d+_\d+)\.conv\.conv", prefix)
+    if m:
+        return (m.group(1), "conv", "conv")
+    m = re.fullmatch(r"(dispconv_\d+)\.conv", prefix)
+    return (m.group(1), "conv") if m else None
+
+
 def _pose_decoder_path(prefix: str) -> Optional[Tuple[str, ...]]:
     if prefix == "squeeze":
         return ("squeeze",)
@@ -84,15 +92,17 @@ def _motion_decoder_path(prefix: str) -> Optional[Tuple[str, ...]]:
     return (f"refine_redu{m.group(1)}",) if m else None
 
 
-def flax_module_path(module_name: str, prefix: str, scales=(0, 1, 2)) -> Optional[Tuple[str, ...]]:
+def flax_module_path(module_name: str, prefix: str, scales=(0, 1, 2),
+                     depth_model: str = "litemono") -> Optional[Tuple[str, ...]]:
     """Flax path of the port submodule ``prefix`` (a state-dict key without
-    its leaf) inside module ``module_name``."""
-    if module_name in ("pose_enc", "motion_enc"):
+    its leaf) inside module ``module_name`` of a ``depth_model`` network."""
+    monodepthv2 = depth_model == "monodepthv2"
+    if module_name in ("pose_enc", "motion_enc") or (module_name == "depth_enc" and monodepthv2):
         return _resnet_path(prefix)
     if module_name == "depth_enc":
         return _litemono_path(prefix)
     if module_name == "depth_dec":
-        return _lite_depth_decoder_path(prefix, tuple(scales))
+        return _depth_decoder_path(prefix) if monodepthv2 else _lite_depth_decoder_path(prefix, tuple(scales))
     if module_name == "pose_dec":
         return _pose_decoder_path(prefix)
     return _motion_decoder_path(prefix)
@@ -125,7 +135,7 @@ def _get(tree: Dict, path: Tuple[str, ...]):
 
 
 def load_module_variables(module: nn.Module, module_name: str, params: Dict, batch_stats: Dict,
-                          scales=(0, 1, 2)) -> nn.Module:
+                          scales=(0, 1, 2), depth_model: str = "litemono") -> nn.Module:
     """Copy one module's flax ``params`` / ``batch_stats`` subtrees into the
     port ``module`` (one of ``MODULE_NAMES``) in place; returns it.
 
@@ -144,7 +154,7 @@ def load_module_variables(module: nn.Module, module_name: str, params: Dict, bat
             if spec is None:
                 continue
             collection, leaf, axes = spec
-            path = flax_module_path(module_name, prefix, scales)
+            path = flax_module_path(module_name, prefix, scales, depth_model)
             if path is None:
                 raise KeyError(f"{module_name}.{key} has no flax counterpart")
             value = np.array(_get(trees[collection], path + (leaf,)), np.float32)
@@ -161,5 +171,6 @@ def load_jax_variables(model: nn.Module, params: Dict, batch_stats: Dict, cfg) -
     ``DynamoModel`` (nested dicts of numpy arrays keyed by module name) into
     the port ``model`` in place; returns it."""
     for name in MODULE_NAMES:
-        load_module_variables(getattr(model, name), name, params[name], batch_stats.get(name, {}), tuple(cfg.scales))
+        load_module_variables(getattr(model, name), name, params[name], batch_stats.get(name, {}), tuple(cfg.scales),
+                              cfg.depth_model)
     return model

@@ -34,7 +34,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     BatchNorm: ``running = 0.9 * running + 0.1 * batch_stat`` with the
     *biased* batch variance (``resnet.py:73-74``, ``litemono.py:131,217``).
     ``nn.BatchNorm2d`` would update with the unbiased variance. The
-    normalization itself uses the biased batch variance in both."""
+    normalization itself uses the biased batch variance in both. Under a
+    bfloat16 autocast the statistics are taken in float32, as flax takes
+    them, and the running buffers stay float32."""
 
     def __init__(self, num_features, eps=1e-5):
         super().__init__(num_features, eps=eps, momentum=0.1)
@@ -43,7 +45,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)

@@ -27,7 +27,7 @@ from typing import Dict, Sequence
 import torch
 import torch.nn as nn
 
-from dynamo_depth_torch.models.depth_decoder import LiteDepthDecoder
+from dynamo_depth_torch.models.depth_decoder import DepthDecoder, LiteDepthDecoder
 from dynamo_depth_torch.models.litemono import LiteMono
 from dynamo_depth_torch.models.motion_decoder import MotionDecoder
 from dynamo_depth_torch.models.pose_decoder import PoseDecoder
@@ -53,13 +53,17 @@ class DynamoModel(nn.Module):
     def __init__(self, depth_model="litemono", encoder_num_layers=18, scales=(0, 1, 2), frame_ids=(0, -1, 1),
                  drop_path_rate=0.4):
         super().__init__()
-        if depth_model != "litemono":
-            # The monodepthv2 depth network is not ported yet.
-            raise NotImplementedError(f"depth_model {depth_model!r} is not ported; use 'litemono'")
         self.scales = tuple(scales)
         self.frame_ids = tuple(frame_ids)
-        self.depth_enc = LiteMono(drop_path_rate=drop_path_rate)
-        self.depth_dec = LiteDepthDecoder(self.depth_enc.num_ch_enc, scales=self.scales)
+        if depth_model == "monodepthv2":
+            self.depth_enc = ResnetEncoder(encoder_num_layers, num_input_images=1)
+            self.depth_dec = DepthDecoder(self.depth_enc.num_ch_enc, scales=self.scales)
+        elif depth_model == "litemono":
+            # drop_path_rate is LiteMono's stochastic depth.
+            self.depth_enc = LiteMono(drop_path_rate=drop_path_rate)
+            self.depth_dec = LiteDepthDecoder(self.depth_enc.num_ch_enc, scales=self.scales)
+        else:
+            raise ValueError(f"depth_model {depth_model!r} not recognized")
         self.pose_enc = ResnetEncoder(encoder_num_layers, num_input_images=2)
         self.pose_dec = PoseDecoder(int(self.pose_enc.num_ch_enc[-1]), num_frames_to_predict_for=2)
         self.motion_enc = ResnetEncoder(encoder_num_layers, num_input_images=3)
@@ -71,7 +75,8 @@ class DynamoModel(nn.Module):
     def predict_depths(self, inputs, outputs, generator):
         frames = list(self.frame_ids)
         stacked = torch.cat([inputs[("color_aug", f, 0)] for f in frames], dim=0)
-        disp = self.depth_dec(self.depth_enc(stacked, generator))
+        features = self.depth_enc(stacked, generator) if isinstance(self.depth_enc, LiteMono) else self.depth_enc(stacked)
+        disp = self.depth_dec(features)
         for (name, s), v in disp.items():
             for f, p in zip(frames, torch.chunk(v, len(frames), dim=0)):
                 outputs[(name, f, s)] = p
@@ -115,7 +120,7 @@ class DynamoModel(nn.Module):
 
     def forward(self, inputs: Dict, bool_CmpFlow=True, bool_MotMask=True, generator=None) -> Dict:
         """Train or eval mode follows ``self.training``; ``generator`` feeds
-        the depth encoder's drop-path draws."""
+        LiteMono's drop-path draws."""
         outputs: Dict = {}
         self.predict_depths(inputs, outputs, generator)
         self.predict_poses(inputs, outputs)

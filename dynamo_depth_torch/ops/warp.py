@@ -5,7 +5,8 @@ align_corners=True)`` (``Trainer.py:281``), values and both gradients; on the
 card it runs the CUDA kernels K1/K2 and on the CPU their plain version
 (``ops/kernels/warp.py``). ``resize_bilinear`` is ``F.interpolate(mode=
 'bilinear', align_corners=False)``, computed for factors that are not whole
-numbers as the JAX package computes it; ``resize_bicubic_aa`` reproduces
+numbers as the JAX package computes it; ``resize_nearest`` is
+``F.interpolate(mode='nearest')``; ``resize_bicubic_aa`` reproduces
 ``jax.image.resize(..., 'bicubic', antialias=True)`` plus a clip to [0, 1],
 the colour pyramid of the JAX package (``Trainer.py:729-734``).
 """
@@ -59,6 +60,19 @@ def resize_bilinear(x, out_hw):
 def upsample2x_nearest(x):
     """x2 nearest upsample of NCHW (the Monodepth2 decoder's upsample)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def resize_nearest(x, out_hw):
+    """``F.interpolate(mode='nearest')`` (the legacy floor rule) for NCHW:
+    output row i reads row floor(i * H / Ho), with the product in float32 as
+    the JAX package takes it."""
+    H, W = x.shape[-2:]
+    Ho, Wo = out_hw
+    if (Ho, Wo) == (H, W):
+        return x
+    ys = torch.floor(torch.arange(Ho, dtype=torch.float32, device=x.device) * (H / Ho)).long()
+    xs = torch.floor(torch.arange(Wo, dtype=torch.float32, device=x.device) * (W / Wo)).long()
+    return x[..., ys, :][..., xs]
 
 
 def _keys_cubic(x):

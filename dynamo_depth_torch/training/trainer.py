@@ -85,17 +85,17 @@ class Trainer:
         if cfg.weights_init != "scratch" and not cfg.load_ckpt:
             # A checkpoint replaces the initial weights, as in the JAX package.
             raise NotImplementedError("only weights_init='scratch' is ported: the pretrained backbones are not in the repository")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("only compute_dtype='float32' is ported")
         if cfg.num_devices > 1:
             raise NotImplementedError("multi-GPU training is not ported: pass --num_devices 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         # The JAX package runs float32 models at Precision.HIGHEST; on the
         # card that means no TF32 in cuDNN convolutions or cuBLAS matmuls.
-        # These are process-wide switches.
+        # These are process-wide switches, off under bfloat16 too: what runs
+        # outside the autocast region (geometry, RANSAC, losses) stays float32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.B, self.H, self.W = cfg.batch_size, cfg.height, cfg.width
         self.log_path = osp.join(cfg.log_dir, cfg.model_name)
 
@@ -215,8 +215,23 @@ class Trainer:
 
     # ------------------------------------------------------------ train step
 
+    def _model_outputs(self, inputs: Dict, bool_CmpFlow: bool, bool_MotMask: bool, generator=None) -> Dict:
+        """The networks' forward in the compute dtype, every output float32.
+
+        Under ``compute_dtype="bfloat16"`` the networks run inside
+        ``torch.autocast`` (parameters, BatchNorm statistics and Adam's state
+        stay float32), and the region ends at the model's outputs, which are
+        cast to float32 as the JAX package's ``_outputs_to_f32`` casts them:
+        the sample coordinates, the warp and photometric kernels, RANSAC and
+        the losses see float32 only."""
+        if self.compute_dtype == torch.float32:
+            return self.model(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
+        with torch.autocast(device_type=self.device.type, dtype=self.compute_dtype):
+            outputs = self.model(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
+        return {k: v.float() if v.is_floating_point() else v for k, v in outputs.items()}
+
     def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int):
-        outputs = self.model(inputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, generator=generator)
+        outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator)
         view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
                        automask=self.automask)
         losses = compute_losses(
@@ -360,7 +375,7 @@ class Trainer:
         self.model.eval()
         try:
             with torch.no_grad():
-                return self.model(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask)
+                return self._model_outputs(inputs, bool_CmpFlow, bool_MotMask)
         finally:
             self.model.train(was_training)
 

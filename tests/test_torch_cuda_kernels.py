@@ -3,7 +3,7 @@
 Marked ``cuda``: every test skips without an NVIDIA card (a CUDA kernel
 has no CPU mode). On the card:
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Shapes are chosen for the edges of the kernels' tiling: widths that are not
 multiples of the tiles (64 for K1 and K4, 32 for K2, K3's 30-column warp
@@ -171,6 +171,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.rand(1, 3, 6, 8, device=dev)
     with pytest.raises(ValueError):
         warp.warp_fwd(x.double(), torch.rand(1, 5, 7, 2, device=dev))
+    # bfloat16 too: the bfloat16 step casts the networks' outputs to float32
+    # before view synthesis, and the wrappers do not cast.
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_fwd(x.bfloat16(), torch.rand(1, 5, 7, 2, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_bwd(x, torch.rand(1, 5, 7, 2, device=dev), torch.rand(1, 3, 5, 7, device=dev).bfloat16(), True)
+    with pytest.raises(ValueError, match="float32"):
+        photometric.photometric_fwd(x.bfloat16(), x.bfloat16(), 0.85)
+    with pytest.raises(ValueError, match="float32"):
+        photometric.photometric_bwd(x, x, torch.rand(1, 1, 6, 8, device=dev).bfloat16(), 0.85, True)
     with pytest.raises(ValueError):
         photometric.photometric_fwd(x[..., ::2], x[..., ::2], 0.85)  # not contiguous
     with pytest.raises(ValueError):

@@ -32,13 +32,14 @@ ODOM_SEG = "val/segment-0000000001_eight_frames"
 ODOM_FRAMES = 8
 
 
-def save_checkpoint(root, seed=0):
+def save_checkpoint(root, seed=0, depth_model="litemono"):
     """A port model from ``seed`` saved as ``<root>/logs/tiny/models/
     fine_tune_00`` (the eval CLIs name their outputs after that path), with
     BatchNorm statistics that are not the initial ones, so that eval mode
     is seen to use them."""
     torch.manual_seed(seed)
-    model = DynamoModel(drop_path_rate=0.0)
+    model = DynamoModel(depth_model=depth_model, scales=(0, 1, 2, 3) if depth_model == "monodepthv2" else (0, 1, 2),
+                        drop_path_rate=0.0)
     gen = torch.Generator().manual_seed(seed)
     for name, buf in model.named_buffers():
         if name.endswith("running_mean"):

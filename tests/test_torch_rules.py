@@ -92,10 +92,10 @@ def test_trainer_refuses_what_is_not_ported():
     cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1)  # weights_init="pretrained"
     with pytest.raises(NotImplementedError):
         trainer_mod.Trainer(cfg, device="cpu")
-    cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1, weights_init="scratch",
-                       compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        trainer_mod.Trainer(cfg, device="cpu")
+    # monodepthv2 and bfloat16 are ported: they build.
+    cfg = DynamoConfig(dataset="kitti", height=64, width=96, batch_size=1, weights_init="scratch",
+                       depth_model="monodepthv2", compute_dtype="bfloat16")
+    assert trainer_mod.Trainer(cfg, device="cpu").compute_dtype == torch.bfloat16
     cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1, weights_init="scratch", num_devices=2)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         trainer_mod.Trainer(cfg, device="cpu")

@@ -13,6 +13,7 @@ run once per phase. This file runs ``fine_tune`` and ``disp_init``;
 ``test_torch_phase_steps.py`` runs the same tests on the other two phases.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -37,7 +38,7 @@ from dynamo_depth_tpu.models.convert import convert_module
 from dynamo_depth_tpu.models.model import DynamoModel, modules_for_networks
 from dynamo_depth_tpu.ops.warp import resize_bicubic_aa
 from dynamo_depth_tpu.training.losses import compute_losses, view_synthesis
-from dynamo_depth_tpu.training.trainer import PHASE_SPEC
+from dynamo_depth_tpu.training.trainer import PHASE_SPEC, _outputs_to_f32
 from torch_test_threads import two_torch_threads  # noqa: F401
 
 B, H, W = 2, 32, 64
@@ -45,16 +46,34 @@ STEP, STEPS_PER_EPOCH = 5, 100  # ramp = 3 * 5 / 100: the ramped terms count
 KW = dict(dataset="kitti", height=H, width=W, batch_size=B, weights_init="scratch")
 
 
+def jax_model(cfg):
+    return DynamoModel(depth_model=cfg.depth_model, encoder_num_layers=cfg.encoder_num_layers,
+                       scales=tuple(cfg.scales), frame_ids=tuple(cfg.frame_ids),
+                       dtype=jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32)
+
+
+_STEP_FNS = {}
+
+
 def _jax_step(cfg, phase, variables, batch, rng):
+    """One JAX step of ``phase``; the compiled step is kept per config."""
+    key = (phase, repr(cfg))
+    if key not in _STEP_FNS:
+        _STEP_FNS[key] = _jax_step_fn(cfg, phase)
+    return _STEP_FNS[key](variables, batch, rng)
+
+
+def _jax_step_fn(cfg, phase):
     bool_cmp, bool_mask, networks, lr_factor = PHASE_SPEC[phase]
     automask = phase == "disp_init"
     trainable = modules_for_networks(networks)
-    model = DynamoModel(depth_model="litemono", scales=tuple(cfg.scales), frame_ids=tuple(cfg.frame_ids))
+    model = jax_model(cfg)
 
     def pyramid(inputs):  # Trainer.process_inputs_device
         out = dict(inputs)
         for s in cfg.scales[1:]:
-            out[("color", 0, s)] = resize_bicubic_aa(out[("color", 0, s - 1)], (H // 2 ** s, W // 2 ** s))
+            out[("color", 0, s)] = resize_bicubic_aa(out[("color", 0, s - 1)],
+                                                     (cfg.height // 2 ** s, cfg.width // 2 ** s))
         return out
 
     def loss_fn(t_params, f_params, batch_stats, batch, rng):
@@ -64,6 +83,7 @@ def _jax_step(cfg, phase, variables, batch, rng):
             {"params": {**f_params, **t_params}, "batch_stats": batch_stats}, inputs, train=True,
             bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, mutable=["batch_stats"], rngs={"droppath": rng_drop},
         )
+        outputs = _outputs_to_f32(outputs)
         view_synthesis(cfg, inputs, outputs, bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, automask=automask)
         losses = compute_losses(
             cfg, inputs, outputs, rng_loss, bool_CmpFlow=bool_cmp, bool_MotMask=bool_mask, automask=automask,
@@ -71,16 +91,30 @@ def _jax_step(cfg, phase, variables, batch, rng):
         )
         return losses["loss"], (losses, mut["batch_stats"])
 
-    # The trainer's partition: gradients of the trainable modules only.
-    t_params = {k: v for k, v in variables["params"].items() if k in trainable}
-    f_params = {k: v for k, v in variables["params"].items() if k not in trainable}
-    (_, (losses, new_bs)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        t_params, f_params, variables["batch_stats"], batch, rng
-    )
+    jitted = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    compiled = []
     tx = optax.adam(cfg.learning_rate * lr_factor)
-    updates, _ = tx.update(grads, tx.init(t_params), t_params)
-    new_params = {**f_params, **optax.apply_updates(t_params, updates)}
-    return jax.tree.map(np.asarray, (losses, grads, new_params, new_bs))
+
+    def grad_fn(*args):
+        # A bfloat16 step rounds every operation's result to bfloat16, as
+        # flax's dtype= asks: XLA's CPU compiler would otherwise keep float32
+        # between the operations it fuses (excess precision).
+        if not compiled:
+            bf16 = cfg.compute_dtype == "bfloat16"
+            compiled.append(jitted.lower(*args).compile(
+                compiler_options={"xla_allow_excess_precision": False}) if bf16 else jitted)
+        return compiled[0](*args)
+
+    def step(variables, batch, rng):
+        # The trainer's partition: gradients of the trainable modules only.
+        t_params = {k: v for k, v in variables["params"].items() if k in trainable}
+        f_params = {k: v for k, v in variables["params"].items() if k not in trainable}
+        (_, (losses, new_bs)), grads = grad_fn(t_params, f_params, variables["batch_stats"], batch, rng)
+        updates, _ = tx.update(grads, tx.init(t_params), t_params)
+        new_params = {**f_params, **optax.apply_updates(t_params, updates)}
+        return jax.tree.map(np.asarray, (losses, grads, new_params, new_bs))
+
+    return step
 
 
 def _jax_draws(cfg, phase, rng):
@@ -90,6 +124,7 @@ def _jax_draws(cfg, phase, rng):
     RANSAC indices, uniform over the candidate rows of that scale's
     disparity (where the ground term runs)."""
     bool_cmp, bool_mask, networks, _ = PHASE_SPEC[phase]
+    B, H, W = cfg.batch_size, cfg.height, cfg.width
     _, rng_loss = jax.random.split(rng)
     rng_noise, rng_ground = jax.random.split(rng_loss)
     noise, indices = [], []
@@ -105,20 +140,40 @@ def _jax_draws(cfg, phase, rng):
     return noise, indices
 
 
-def run_step(phase):
-    """One step of ``phase`` in both packages from the same weights and batch."""
-    jcfg, tcfg = JConfig(**KW), TConfig(**KW)
-    batch = synthetic_batch(tcfg, B, H, W)
-    rng = jax.random.PRNGKey(7)
+_VARIABLES = {}
+
+
+def init_variables(cfg):
+    """The JAX model's float32 weights from key 0, as numpy trees (made once
+    per config; read only)."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    if repr(cfg) not in _VARIABLES:
+        model = jax_model(cfg)
+        dummy = {("color_aug", f, 0): jnp.zeros((1, cfg.height, cfg.width, 3)) for f in cfg.frame_ids}
+        variables = jax.jit(lambda k: model.init({"params": k, "droppath": k}, dummy, train=False))(
+            jax.random.PRNGKey(0))
+        _VARIABLES[repr(cfg)] = jax.tree.map(np.asarray, dict(variables))
+    return _VARIABLES[repr(cfg)]
+
+
+def run_step(phase, jax_dtypes=("float32",), batch_seed=0, **overrides):
+    """One step of ``phase`` in both packages from the same weights and batch.
+    ``overrides`` set config fields of both (the port's ``compute_dtype``
+    among them); the JAX step runs once for each of ``jax_dtypes``, and
+    ``.jax`` holds the first run, ``.jax_by_dtype`` all of them.
+    ``batch_seed`` draws another synthetic batch and RANSAC key."""
+    kw = {**KW, **overrides}
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    batch = synthetic_batch(tcfg, tcfg.batch_size, tcfg.height, tcfg.width, seed=batch_seed)
+    rng = jax.random.PRNGKey(7 + batch_seed)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_layers.DropPath, "__call__", lambda self, x, train=False: x)
-        model = DynamoModel(depth_model="litemono", scales=tuple(jcfg.scales), frame_ids=tuple(jcfg.frame_ids))
-        dummy = {("color_aug", f, 0): jnp.zeros((1, H, W, 3)) for f in jcfg.frame_ids}
-        variables = jax.jit(lambda k: model.init({"params": k, "droppath": k}, dummy, train=False))(
-            jax.random.PRNGKey(0)
-        )
-        variables = jax.tree.map(np.asarray, dict(variables))
-        jax_out = _jax_step(jcfg, phase, variables, jax.tree.map(jnp.asarray, batch), rng)
+        variables = init_variables(jcfg)
+        jax_by_dtype = {
+            dt: _jax_step(dataclasses.replace(jcfg, compute_dtype=dt), phase, variables,
+                          jax.tree.map(jnp.asarray, batch), rng)
+            for dt in jax_dtypes
+        }
 
     trainer = Trainer(tcfg, device="cpu", phase=phase, steps_per_epoch=STEPS_PER_EPOCH, drop_path_rate=0.0)
     load_jax_variables(trainer.model, variables["params"], variables["batch_stats"], tcfg)
@@ -131,7 +186,8 @@ def run_step(phase):
         counts = launch_counts()
     assert not indices and not noise, "every scale drew its RANSAC hypotheses and automask noise once"
     return types.SimpleNamespace(
-        phase=phase, cfg=tcfg, jax=jax_out, losses=losses, trainer=trainer, variables=variables, counts=counts
+        phase=phase, cfg=tcfg, jax=jax_by_dtype[jax_dtypes[0]], jax_by_dtype=jax_by_dtype, losses=losses,
+        trainer=trainer, variables=variables, counts=counts,
     )
 
 
@@ -150,7 +206,7 @@ def _port_tree(trainer, module_name, cfg, grads=False):
     if grads:
         for k, p in mod.named_parameters():
             sd[k] = np.zeros_like(sd[k]) if p.grad is None else p.grad.numpy().copy()
-    return convert_module(module_name, sd, types.SimpleNamespace(depth_model="litemono", scales=cfg.scales))
+    return convert_module(module_name, sd, cfg)
 
 
 def _leaves(tree):
