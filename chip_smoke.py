@@ -74,7 +74,21 @@ Phases (any failure exits non-zero, nothing is caught):
    term that RANSAC does not enter within ``BF16_LOSS_TOL``; d_ground and
    the totals finite), then timed and profiled as phase 6 (still
    6 launches per step: the kernels take the float32 outputs), beside phase
-   6's numbers; one bfloat16 monodepthv2 step with finite losses.
+   6's numbers; one bfloat16 monodepthv2 step with finite losses;
+11. data parallelism over ``torch.distributed``, each launch a subprocess
+   ``python -m torch.distributed.run ... chip_smoke.py --ddp-worker <name>
+   <dir>`` killed after ``DDP_TIMEOUT_S``: (a) at world size 1 over NCCL,
+   the curriculum from the entry point as phase 7 runs it (2 steps per
+   phase, the launches per step, weights moved or bit-identical,
+   checkpoints) through ``DistributedDataParallel``, its ms/step beside
+   phase 7's; (b) two ranks sharing the card over gloo (NCCL refuses two
+   ranks on one card): 3 ``fine_tune`` steps at 192x640, batch 3 per rank,
+   6 launches of each kernel per rank-step, parameters and BatchNorm
+   buffers bit-identical across the ranks after every step, ms/step and
+   the bytes all-reduced per step; the same two ranks at 64x96 on the card
+   against the two on the CPU, the loss terms RANSAC does not enter at
+   phase 5's tolerance (the others recorded); (c) ``eval.depth``
+   with the two ranks, its tables equal to phase 8's one-process tables.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -139,10 +153,13 @@ def launches_per_step(cfg, phase="fine_tune"):
             "photometric_bwd": n}
 
 
-def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum"):
-    """Phases 7 and 9: the curriculum from the entry point, ``steps`` steps
-    per phase. Returns {"launches": {kernel: n}, "per_step": {kernel:
-    {phase: n}}, "summary": {...}}; raises SystemExit on any failure."""
+def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", reload=True):
+    """Phases 7, 9 and 11a: the curriculum from the entry point, ``steps``
+    steps per phase, then (``reload``) its last folder loaded into a fresh
+    trainer and one more step from it. Returns {"launches": {kernel: n},
+    "per_step": {kernel: {phase: n}}, "summary": {...}, "wrappers": the
+    type of the training wrapper at each step}; raises SystemExit on any
+    failure."""
     import torch
 
     from dynamo_depth_torch import train as train_entry
@@ -188,7 +205,8 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum"):
         ms = (time.perf_counter() - t0) * 1e3
         after = launch_counts()
         records[self.phase].append({"ms": ms, "launches": {k: after[k] - before[k] for k in after},
-                                  "losses": {k: float(v) for k, v in losses.items()}})
+                                  "losses": {k: float(v) for k, v in losses.items()},
+                                  "wrapper": type(self.ddp).__name__})
         return losses
 
     def recorded_phase(self, phase, num_epoch):
@@ -265,8 +283,12 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum"):
             raise SystemExit(f"{folder}: {sorted(files)}, expected {sorted(expected_files)}")
     print(f"  checkpoints: {', '.join(f'{p}_00' for p in trainer_mod.PHASES)}, each with "
           f"{len(MODULE_NAMES)} module files, adam.pth and opt.json")
-
+    wrappers = sorted({r["wrapper"] for recs in records.values() for r in recs})
     last = models / "fine_tune_00"
+    if not reload:
+        return {"launches": launches, "per_step": per_step, "summary": summary, "folder": str(last),
+                "wrappers": wrappers}
+
     cfg = DynamoConfig.from_dict(json.loads((last / "opt.json").read_text()))
     cfg.load_ckpt = str(last)
     fresh = trainer_mod.Trainer(cfg)
@@ -288,7 +310,8 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum"):
     print(f"  one more fine_tune step from fine_tune_00 with --resume_optim: Adam's count {steps} -> {steps + 1}, "
           f"loss {losses[0]:.5f}")
     summary["resumed_loss"] = losses[0]
-    return {"launches": launches, "per_step": per_step, "summary": summary, "folder": last, "work": work}
+    return {"launches": launches, "per_step": per_step, "summary": summary, "folder": last, "work": work,
+            "wrappers": wrappers}
 
 
 ODOM_SEG, ODOM_FRAMES = "val/segment-0000000001_eight_frames", 8
@@ -465,6 +488,7 @@ def run_eval(smi, folder, work):
         print(f"  predict {key} at {H}x{W} batch {B}: {predict_ms[key]['device_ms']:.3f} ms device, "
               f"{predict_ms[key]['wall_ms']:.3f} ms wall with the copy in (median of 5 after 2 warm-ups) on {smi}")
     return {"launches": launches, "peak_bytes": peak, "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+            "tables": {"kitti": card["depth_kitti"]["path"], "waymo": card["depth_waymo"]["path"]},
             "predict": predict_ms, "plots_written": mc["pdfs"], "plots_missing": mc["missing"],
             "odometry_ate": card["odometry"]["ates"]}
 
@@ -709,6 +733,228 @@ def run_bf16(smi, f32_step, f32_profiled):
     if rel[worst] > BF16_LOSS_TOL:
         raise SystemExit(f"bfloat16 step disagrees with the float32 step: {losses}")
     return {"step": step, "profiled": profiled, "rel": rel, "md2_loss": float(out["loss"])}
+
+
+DDP_TIMEOUT_S = 600  # a phase-11 launch past it is killed: a hung collective fails the script
+
+
+def launch(nproc, worker, out):
+    """``python -m torch.distributed.run --nproc_per_node nproc chip_smoke.py
+    --ddp-worker worker out``, its output shown; raises SystemExit when it
+    fails or outlasts DDP_TIMEOUT_S (then it and its ranks are killed).
+    Returns the wall seconds."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc), "--master_addr",
+           "127.0.0.1", "--master_port", str(free_port()), str(Path(__file__).resolve()), "--ddp-worker", worker,
+           str(out)]
+    print(f"  launch: {' '.join(cmd[1:])}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent), start_new_session=True)
+    try:
+        rc = proc.wait(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise SystemExit(f"{worker}: still running after {DDP_TIMEOUT_S} s, killed")
+    if rc != 0:
+        raise SystemExit(f"{worker}: the launch failed with exit code {rc}")
+    return time.perf_counter() - t0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_worker(worker, out):
+    """One rank of a phase-11 launch (torchrun's environment is set)."""
+    import torch
+
+    from dynamo_depth_torch.parallel import dist as pdist
+
+    out = Path(out)
+    rank = int(os.environ["RANK"])
+    if worker == "nccl1":
+        # 11a: the curriculum from the entry point, which joins the NCCL group.
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+        result = run_curriculum(smi, steps=2, name="ddp_world1", reload=False)
+        result["backend"] = torch.distributed.get_backend()
+        result["world"] = pdist.world_size()
+        (out / "nccl1.json").write_text(json.dumps(result))
+        torch.distributed.destroy_process_group()
+        return 0
+    if worker == "gloo2":
+        torch.set_num_threads(4)
+        pdist.init_distributed(device="cuda:0", backend="gloo")  # NCCL refuses two ranks on one card
+        result = {"main_path": gloo_main_path(rank), "card_vs_cpu": gloo_card_vs_cpu(rank),
+                  "eval": gloo_eval(rank, out)}
+        (out / f"gloo2_rank{rank}.json").write_text(json.dumps(result))
+        torch.distributed.destroy_process_group()
+        return 0
+    raise SystemExit(f"unknown worker {worker}")
+
+
+def gloo_main_path(rank, steps=3):
+    """11b: ``steps`` fine_tune steps at 192x640, batch 3 per rank, from
+    seed-0 weights, both ranks on cuda:0 over gloo: each rank's launches per
+    step, ms per step, and the ranks' parameters and BatchNorm buffers
+    bit-identical after every step (``check_replicated`` raises if not)."""
+    import torch
+
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dynamo_depth_torch.parallel import dist as pdist
+    from dynamo_depth_torch.training.synthetic import synthetic_batch
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    cfg = DynamoConfig(dataset="kitti", depth_model="litemono", height=H, width=W, batch_size=B, weights_init="scratch")
+    trainer = Trainer(cfg, device="cuda:0", phase="fine_tune")
+    world = pdist.world_size()
+    rows = synthetic_batch(cfg, B * world, H, W)
+    batch = trainer.to_device({k: v[rank * B:(rank + 1) * B] for k, v in rows.items()})
+    expected = launches_per_step(cfg)
+    step_ms, launches = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for step in range(steps):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses = trainer.train_step(batch, trainer.generator, step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        if launches[-1] != expected:
+            raise SystemExit(f"rank {rank} step {step}: launches {launches[-1]}, expected {expected}")
+        bad = [k for k, v in losses.items() if not math.isfinite(float(v))]
+        if bad:
+            raise SystemExit(f"rank {rank} step {step}: non-finite losses {bad}")
+        pdist.check_replicated(trainer.model)
+    total = launch_counts()
+    trainable = sum(p.numel() for p in trainer.model.parameters() if p.requires_grad)
+    bn = sum(b.numel() for n, b in trainer.model.named_buffers() if n.endswith(("running_mean", "running_var")))
+    return {"step_ms": step_ms, "launches_per_step": launches, "launches": total, "wrapper": type(trainer.ddp).__name__,
+            "trainable_params": trainable, "bn_values": bn, "allreduce_bytes_per_step": 4 * (trainable + bn),
+            "loss": float(losses["loss"]), "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def gloo_card_vs_cpu(rank):
+    """11b at 64x96: one fine_tune step of the two ranks on the card
+    (kernels) against one of the same two ranks on the CPU (plain versions),
+    from the same weights, rows and RANSAC draws; the averaged loss terms
+    that RANSAC does not enter at phase 5's tolerance."""
+    import torch
+
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.ops import ground_plane
+    from dynamo_depth_torch.training.synthetic import synthetic_batch
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    small = DynamoConfig(dataset="kitti", height=64, width=96, batch_size=2, weights_init="scratch")
+    t_gpu = Trainer(small, device="cuda:0", drop_path_rate=0.0)
+    t_cpu = Trainer(small, device="cpu", drop_path_rate=0.0)
+    t_cpu.model.load_state_dict({k: v.cpu() for k, v in t_gpu.model.state_dict().items()})
+    rows = synthetic_batch(small, 4, small.height, small.width)
+    local = {k: v[rank * 2:(rank + 1) * 2] for k, v in rows.items()}
+    draw = ground_plane.draw_sample_idx
+    results = {}
+    for label, tr in (("cuda", t_gpu), ("cpu", t_cpu)):
+        idx_gen = torch.Generator().manual_seed(1 + rank)
+        ground_plane.draw_sample_idx = lambda b, t, n, g, device: torch.randint(0, n, (b, t), generator=idx_gen).to(device)
+        try:
+            losses = tr.train_step(tr.to_device(local), torch.Generator(device=tr.device).manual_seed(0), 5)
+        finally:
+            ground_plane.draw_sample_idx = draw
+        results[label] = {k: float(v) for k, v in losses.items()}
+    rel = {k: abs(results["cuda"][k] - results["cpu"][k]) / max(abs(results["cpu"][k]), 1e-6) for k in results["cpu"]}
+    # Phase 5's 1e-4 for every term RANSAC does not enter. RANSAC keeps the
+    # hypothesis with the most inliers, and on these rows two hypotheses lie
+    # so close that the CPU's own thread count moves d_ground by 3e-4: the
+    # card may keep another plane, so d_ground and the totals that hold it
+    # must be finite and are recorded (found: 0.15 in one run).
+    worst = max((k for k in rel if k not in RANSAC_TERMS), key=rel.get)
+    bad = [k for k in RANSAC_TERMS & rel.keys() if not math.isfinite(results["cuda"][k])]
+    if rel[worst] > 1e-4 or bad:
+        raise SystemExit(f"rank {rank}: the 2-rank card step disagrees with the 2-rank CPU step: {results}")
+    return {"worst": worst, "rel": rel[worst], "tol": 1e-4, "ransac_rel": {k: rel[k] for k in RANSAC_TERMS & rel.keys()},
+            "losses": results}
+
+
+def gloo_eval(rank, out):
+    """11c: eval.depth of phase 7's fine_tune_00 with the two ranks on the
+    card, on tiny_kitti and tiny_waymo, as phase 8 ran it on one process."""
+    from dynamo_depth_torch.eval import depth
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke"
+    folder = work / "logs" / "curriculum" / "models" / "fine_tune_00"
+    paths = {}
+    for dataset, split in (("kitti", "tiny_kitti"), ("waymo", "tiny_waymo")):
+        argv = ["-d", dataset, "--data_path", f"{root / 'assets' / f'tiny_{dataset}'}/", "--split", split, "-l",
+                str(folder), "--height", str(H), "--width", str(W), "-b", str(B), "--num_workers", "2",
+                "--eval_dir", str(out / "eval")]
+        paths[dataset] = depth.main(argv, device="cuda:0")["path"]
+    return paths
+
+
+def run_ddp(smi, phase7, phase8_tables):
+    """Phase 11: the port's data parallelism on the one card. 11a: the
+    curriculum from the entry point under torchrun at world size 1 over NCCL;
+    11b: two gloo ranks sharing the card, bit-equal after every step and held
+    to the same two ranks on the CPU; 11c: eval.depth with the two ranks
+    against phase 8's one-process tables."""
+    import torch
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ddp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.cuda.empty_cache()
+
+    print("11a: torchrun --nproc_per_node 1 of the entry point's curriculum (NCCL, world size 1):")
+    wall_a = launch(1, "nccl1", out)
+    a = json.loads((out / "nccl1.json").read_text())
+    if a["backend"] != "nccl" or a["world"] != 1 or a["wrappers"] != ["DistributedDataParallel"]:
+        raise SystemExit(f"11a did not train through DDP over NCCL: {a['backend']}, {a['world']}, {a['wrappers']}")
+    for phase, rec in a["summary"]["phases"].items():
+        one = phase7["summary"]["phases"][phase]
+        print(f"  {phase}: steps of {', '.join(f'{v:.1f}' for v in rec['step_ms'])} ms at world size 1 through DDP "
+              f"(a new process: its first step is cold); phase 7 in one process: "
+              f"{', '.join(f'{v:.1f}' for v in one['step_ms'])} ms on {smi}")
+    print(f"  11a: {wall_a:.1f} s of wall with the launch")
+
+    print("11b and 11c: torchrun --nproc_per_node 2, both ranks on cuda:0 over gloo:")
+    wall_b = launch(2, "gloo2", out)
+    ranks = [json.loads((out / f"gloo2_rank{r}.json").read_text()) for r in (0, 1)]
+    mp = [r["main_path"] for r in ranks]
+    for r, m in enumerate(mp):
+        if m["wrapper"] != "DistributedDataParallel":
+            raise SystemExit(f"11b rank {r} did not train through DDP: {m['wrapper']}")
+        print(f"  rank {r}: fine_tune {H}x{W} batch {B} per rank, ms/step {', '.join(f'{v:.1f}' for v in m['step_ms'])}"
+              f" (two processes sharing one card over a host-staged gloo: no measure of scaling), launches per "
+              f"step {m['launches_per_step'][0]}, loss {m['loss']:.6f}, peak {m['peak_bytes'] / 2**30:.2f} GiB")
+    if mp[0]["loss"] != mp[1]["loss"]:
+        raise SystemExit(f"11b: the ranks' averaged losses differ: {mp[0]['loss']} vs {mp[1]['loss']}")
+    print(f"  parameters and BatchNorm buffers bit-identical on both ranks after each of {len(mp[0]['step_ms'])} "
+          f"steps; all-reduced per step: {mp[0]['trainable_params']} trainable parameters and {mp[0]['bn_values']} "
+          f"BatchNorm values, {mp[0]['allreduce_bytes_per_step'] / 2**20:.2f} MiB")
+    cvc = ranks[0]["card_vs_cpu"]
+    print(f"  64x96 fine_tune step, 2 ranks on the card (kernels) vs 2 ranks on the CPU (plain): worst relative loss "
+          f"difference {cvc['rel']:.2e} in {cvc['worst']} (tolerance {cvc['tol']:.0e}; recorded only, through RANSAC: "
+          + ", ".join(f"{k.split('/')[-1]} {v:.2e}" for k, v in sorted(cvc["ransac_rel"].items())) + ")")
+    for dataset, path in ranks[0]["eval"].items():
+        one, two = Path(phase8_tables[dataset]).read_text(), Path(path).read_text()
+        if one != two:
+            raise SystemExit(f"11c: the 2-rank eval.depth table of {dataset} differs from the 1-process one:\n{two}\n{one}")
+        print(f"  11c eval.depth on tiny_{dataset}: the 2-rank table equals phase 8's one-process table")
+    if not Path(ranks[0]["eval"]["kitti"]).exists() or ranks[1]["eval"]["kitti"] != ranks[0]["eval"]["kitti"]:
+        raise SystemExit("11c: rank 0 wrote no table")
+    print(f"  11b and 11c: {wall_b:.1f} s of wall with the launch")
+    return {"nccl1": a, "gloo2": ranks, "wall_s": {"11a": wall_a, "11bc": wall_b}}
 
 
 def main():
@@ -995,6 +1241,11 @@ def main():
     # ---- 10. bfloat16: the LiteMono step against float32 -------------------
     phase10 = run_bf16(smi, main_path, profiled)
 
+    # ---- 11. data parallelism: torchrun, NCCL at world size 1, two gloo ranks
+    print("data parallelism (phase 11):")
+    phase11 = run_ddp(smi, phase7, phase8["tables"])
+    gloo_main = phase11["gloo2"][0]["main_path"]
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -1018,6 +1269,10 @@ def main():
             "in_step_ms_monodepthv2": phase9["profiled"]["in_step_ms"][k],
             "launches_per_step_bf16": phase10["step"]["launches"][k] / phase10["step"]["steps"],
             "in_step_ms_bf16": phase10["profiled"]["in_step_ms"][k],
+            "launches_ddp_world1": phase11["nccl1"]["launches"][k],
+            "launches_per_step_by_phase_ddp_world1": phase11["nccl1"]["per_step"][k],
+            "launches_gloo2_rank0": gloo_main["launches"][k],
+            "launches_per_rank_step_gloo2": gloo_main["launches_per_step"][0][k],
             "ms_cold": cold[(k, "uniform" if warp_k else None)][0],
             "library_ms_cold": cold[(k, "uniform" if warp_k else None)][1],
         }
@@ -1035,7 +1290,12 @@ def main():
                                "peak_bytes": phase9["step"]["peak_bytes"], "curriculum": phase9["curriculum"]["summary"],
                                "depth_eval_s": phase9["depth_eval_s"]},
                "bfloat16": {"ms": phase10["step"]["ms"], "busy_ms": phase10["profiled"]["busy_ms"],
-                            "peak_bytes": phase10["step"]["peak_bytes"], "loss_rel_err": phase10["rel"]}}
+                            "peak_bytes": phase10["step"]["peak_bytes"], "loss_rel_err": phase10["rel"]},
+               "ddp_world1_nccl": {p: r["ms_per_step"] for p, r in phase11["nccl1"]["summary"]["phases"].items()},
+               "gloo2_shared_card": {"step_ms": gloo_main["step_ms"],
+                                     "allreduce_bytes_per_step": gloo_main["allreduce_bytes_per_step"],
+                                     "card_vs_cpu_rel": phase11["gloo2"][0]["card_vs_cpu"]["rel"]},
+               "ddp_wall_s": phase11["wall_s"]}
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "steps": summary,
                       "card": smi}))
@@ -1044,4 +1304,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--ddp-worker":  # a rank of a phase-11 launch
+        sys.exit(ddp_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

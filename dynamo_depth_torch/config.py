@@ -9,9 +9,10 @@ so a config written for the JAX package parses here unchanged, and the same
 command line (:func:`parse_config`: the same flags, defaults and short
 names). Fields that
 only steered TPU formulations (``image_dtype``, ``pallas_warp``,
-``pallas_photometric``, ``num_devices``, ``prefetch_depth``) keep their names
-so configs still parse; on the card the warp and photometric kernels are the
-only path whatever they say.
+``pallas_photometric``, ``prefetch_depth``) keep their names so configs
+still parse; on the card the warp and photometric kernels are the only path
+whatever they say. ``num_devices`` counts processes: one card each, so it is
+0 (the world size) or the world size of the launch (:meth:`DynamoConfig.validate`).
 """
 
 from __future__ import annotations
@@ -166,7 +167,14 @@ class DynamoConfig:
                 setattr(self, k, table[self.dataset])
         return self
 
-    def validate(self) -> "DynamoConfig":
+    def validate(self, world_size: int = 1) -> "DynamoConfig":
+        """Refuse what the run cannot do; ``world_size`` is the number of
+        processes of the launch, one card each."""
+        if self.num_devices not in (0, world_size):
+            raise ValueError(
+                f"num_devices={self.num_devices}, but the world size is {world_size}: the port runs one card per "
+                f"process, so pass --num_devices 0 or {world_size}, or launch "
+                f"torchrun --nproc_per_node {self.num_devices}")
         if self.height % 32 or self.width % 32:
             raise ValueError(f"height(={self.height}) and width(={self.width}) must be multiples of 32")
         if self.frame_ids[0] != 0:

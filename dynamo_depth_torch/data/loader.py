@@ -103,8 +103,10 @@ class BatchLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + 7919 * self.epoch).shuffle(order)
         # Global batches, strided across hosts so every host sees the same
-        # number of equally-sized batches.
+        # number of equally-sized batches: a whole number of batches per
+        # host, or the others would wait in a collective for the last one.
         num_batches = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        num_batches -= num_batches % self.shard_count
         batches = [
             order[i * self.batch_size : (i + 1) * self.batch_size].tolist()
             for i in range(num_batches)

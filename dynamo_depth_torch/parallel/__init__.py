@@ -1,0 +1,14 @@
+"""Multi-process data parallelism (``parallel/dist.py``)."""
+
+from dynamo_depth_torch.parallel.dist import (  # noqa: F401
+    all_reduce_mean,
+    all_reduce_sum,
+    barrier,
+    check_replicated,
+    init_distributed,
+    is_main_process,
+    local_rank,
+    rank,
+    state_fingerprint,
+    world_size,
+)

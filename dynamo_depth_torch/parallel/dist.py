@@ -1,0 +1,161 @@
+"""Data parallelism over ``torch.distributed`` (the port's counterpart of
+``dynamo_depth_tpu.parallel.mesh``).
+
+One process per card, launched by torchrun (the reference's launcher)::
+
+    torchrun --nproc_per_node N -m dynamo_depth_torch.train [flags]
+
+:func:`init_distributed` joins the process group that torchrun's environment
+describes; without that environment the program is one process and every
+function here is a no-op. The trainer averages gradients through
+``DistributedDataParallel`` and BatchNorm statistics and losses through
+:func:`all_reduce_mean`, which is the JAX package's ``pmean`` over its data
+axis. Only ``all_reduce`` and ``broadcast`` are used, the two collectives
+that gloo also runs on CUDA tensors; gloo has no ``ReduceOp.AVG``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+# What torchrun exports to each process it starts.
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_distributed(device: Optional[str] = None, backend: Optional[str] = None) -> bool:
+    """Join the process group of a torchrun launch; returns whether one is
+    initialised.
+
+    With none of :data:`LAUNCH_ENV` set this is one process and a no-op. A
+    partial environment (a stale ``RANK``, say) is refused, naming what is
+    missing. ``device`` is where the entry point runs (``None``: the card):
+    the backend is ``nccl`` for the card and ``gloo`` for the CPU, unless
+    ``backend`` names another (gloo on the card lets two ranks share one
+    card, which NCCL refuses). Under NCCL each process takes the card of its
+    ``LOCAL_RANK``. A second call is a no-op."""
+    env = {name: os.environ.get(name) for name in LAUNCH_ENV}
+    given = [name for name, v in env.items() if v]
+    if not given:
+        return False
+    missing = [name for name, v in env.items() if not v]
+    if missing:
+        raise RuntimeError(
+            f"the torchrun launch environment is incomplete: {missing} unset while {given} is set; "
+            "launch with torchrun, or export all five or none")
+    if dist.is_initialized():
+        return True
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    backend = backend or ("gloo" if on_cpu else "nccl")
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for NCCL: pass device='cpu' to run on the CPU over gloo")
+        torch.cuda.set_device(int(env["LOCAL_RANK"]))
+    dist.init_process_group(backend, init_method="env://", rank=int(env["RANK"]),
+                            world_size=int(env["WORLD_SIZE"]))
+    return True
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def local_rank() -> int:
+    """The index of this process's card on its machine (torchrun's
+    ``LOCAL_RANK``); 0 for one process."""
+    return int(os.environ.get("LOCAL_RANK", 0)) if is_initialized() else 0
+
+
+def is_main_process() -> bool:
+    """Rank 0, which alone prints, logs and writes checkpoints (the
+    reference's ``is_main``, Trainer.py:736-739)."""
+    return rank() == 0
+
+
+def barrier() -> None:
+    if world_size() > 1:
+        dist.barrier()
+
+
+def _comm_device() -> torch.device:
+    """Where a collective's own tensors live: NCCL reduces on the card."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each tensor over the ranks, in place: one ``all_reduce`` per
+    (dtype, device) of the flattened tensors. Returns ``tensors``."""
+    if world_size() == 1:
+        return tensors
+    groups = {}
+    for t in tensors:
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    for group in groups.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        dist.all_reduce(flat)
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    return tensors
+
+
+def all_reduce_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The mean of each floating-point tensor over the ranks, in place:
+    their sum (:func:`all_reduce_sum`) over the world size. Returns
+    ``tensors``."""
+    world = world_size()
+    if world == 1:
+        return tensors
+    all_reduce_sum(tensors)
+    for t in tensors:
+        t.div_(world)
+    return tensors
+
+
+def state_fingerprint(module: torch.nn.Module) -> torch.Tensor:
+    """64-bit content hash of a module's state dict (names, dtypes, shapes and
+    bytes of every parameter and buffer) as 4 int64 words, each < 2**16."""
+    h = hashlib.sha256()
+    for name, t in module.state_dict().items():
+        t = t.detach().cpu().contiguous()
+        h.update(str((name, str(t.dtype), tuple(t.shape))).encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return torch.frombuffer(bytearray(h.digest()[:8]), dtype=torch.int16).to(torch.int64) & 0xFFFF
+
+
+def check_replicated(module: torch.nn.Module) -> None:
+    """Raise unless every rank holds the same state as rank 0: its
+    fingerprint is broadcast and compared on every rank, and the count of
+    ranks that differ is summed, so all ranks raise together. (The JAX
+    package's ``replicate_to_mesh`` check; ``DistributedDataParallel`` would
+    instead copy rank 0's weights over a diverged rank without a word.)"""
+    world = world_size()
+    if world == 1:
+        return
+    dev = _comm_device()
+    mine = state_fingerprint(module).to(dev)
+    ref = mine.clone()
+    dist.broadcast(ref, src=0)
+    differ = (mine != ref).any().to(torch.int64).reshape(1)
+    dist.all_reduce(differ)
+    if int(differ.item()):
+        raise RuntimeError(
+            f"check_replicated: the weights of {int(differ.item())} of {world} ranks differ from rank 0's "
+            "(state fingerprints disagree); every rank must hold identical state (same seed, same checkpoint, "
+            "same pretrained weights). A common cause: a load that failed on some ranks, leaving their random "
+            "init there.")

@@ -13,6 +13,15 @@ come from the host loader one ahead of the step, the colour pyramid is built
 on the device, and every ``log_frequency`` steps one validation batch is
 scored. Each epoch ends with a checkpoint folder in the reference's layout
 (``training/checkpoint.py``).
+
+Under a torchrun launch (``parallel/dist.py``) the trainer is data-parallel
+with the semantics of the JAX package's ``shard_map`` step: one card per
+process, ``batch_size`` rows per process, each process loading its own shard
+of every global batch; gradients averaged by ``DistributedDataParallel``,
+and after each optimizer step the BatchNorm running statistics of every
+module and the losses averaged over the ranks (``pmean``). Each rank
+normalises with its own rows' batch statistics, as each JAX device does (no
+``SyncBatchNorm``). Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -27,9 +36,11 @@ import torch
 from dynamo_depth_torch.config import DynamoConfig
 from dynamo_depth_torch.data.loader import BatchLoader, make_dataset, sample_epoch_filenames
 from dynamo_depth_torch.data.splits import read_split, split_exists
+from dynamo_depth_torch.models.litemono import DilatedConv
 from dynamo_depth_torch.models.model import MODULE_NAMES, DynamoModel, modules_for_networks
-from dynamo_depth_torch.ops.metrics import depth_metrics
+from dynamo_depth_torch.ops.metrics import DEPTH_METRIC_NAMES, depth_metrics
 from dynamo_depth_torch.ops.warp import resize_bicubic_aa
+from dynamo_depth_torch.parallel import dist as pdist
 from dynamo_depth_torch.training import checkpoint as ckpt
 from dynamo_depth_torch.training.losses import compute_losses, view_synthesis
 from dynamo_depth_torch.utils.io import join_dir, sec_to_hm_str
@@ -50,11 +61,14 @@ _HOST_ONLY = {"index", "gt_dim", "sem_mask", "mot_mask", "depth_gt", "depth_vali
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
-    """The card unless the caller asks for the CPU; raises without a card."""
+    """The card unless the caller asks for the CPU; raises without a card.
+    The default card is the process's own under torchrun (``LOCAL_RANK``);
+    a card given without an index is the current one."""
     if device is None or str(device).startswith("cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device(device or "cuda")
+        dev = torch.device(device or f"cuda:{pdist.local_rank()}")
+        return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
 
 
@@ -70,7 +84,7 @@ class Trainer:
 
     :param cfg: the run's config (``weights_init`` must be ``"scratch"``: the
         imagenet backbones are not in the repository)
-    :param device: ``"cuda"`` (default) or ``"cpu"``
+    :param device: ``"cuda"`` (default: the process's card) or ``"cpu"``
     :param phase: the phase :meth:`train_step` runs until :meth:`train` or
         :meth:`setup_phase` sets another
     :param steps_per_epoch: steps of one epoch of that phase, for the
@@ -81,12 +95,11 @@ class Trainer:
 
     def __init__(self, cfg: DynamoConfig, device: Optional[str] = None, phase: str = "fine_tune",
                  steps_per_epoch: Optional[int] = None, drop_path_rate: float = 0.4):
-        cfg.validate()
+        self.rank, self.world = pdist.rank(), pdist.world_size()
+        cfg.validate(self.world)
         if cfg.weights_init != "scratch" and not cfg.load_ckpt:
             # A checkpoint replaces the initial weights, as in the JAX package.
             raise NotImplementedError("only weights_init='scratch' is ported: the pretrained backbones are not in the repository")
-        if cfg.num_devices > 1:
-            raise NotImplementedError("multi-GPU training is not ported: pass --num_devices 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         # The JAX package runs float32 models at Precision.HIGHEST; on the
@@ -96,7 +109,8 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        self.B, self.H, self.W = cfg.batch_size, cfg.height, cfg.width
+        self.B, self.H, self.W = cfg.batch_size, cfg.height, cfg.width  # B rows per process
+        self.global_B = self.B * self.world
         self.log_path = osp.join(cfg.log_dir, cfg.model_name)
 
         torch.manual_seed(cfg.seed)
@@ -106,8 +120,11 @@ class Trainer:
         ).to(self.device)
         if cfg.load_ckpt:
             self.load_model()
-        # Drop-path masks, RANSAC hypotheses and the automask noise.
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        pdist.check_replicated(self.model)
+        # Drop-path masks, RANSAC hypotheses and the automask noise: distinct
+        # draws on each rank (the JAX step's fold_in(rng, axis_index)), and
+        # rank 0's those of one process.
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + (self.rank << 32))
         self._copy_stream = None
         self.g_step = 0
         # One entry per log_time / log_scalars call: what a run reports.
@@ -118,7 +135,9 @@ class Trainer:
 
     def setup_phase(self, phase: str, steps_per_epoch: int) -> None:
         """Freeze the modules outside the phase's networks and start a fresh
-        Adam over the others."""
+        Adam over the others (and, under a process group, a fresh
+        ``DistributedDataParallel`` wrapper: it registers the parameters that
+        take a gradient when it is built)."""
         self.phase = phase
         self.bool_cmp, self.bool_mask, self.networks, lr_factor = PHASE_SPEC[phase]
         self.automask = phase == "disp_init"
@@ -131,6 +150,35 @@ class Trainer:
         params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = torch.optim.Adam(params, lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8)
         self.opt_steps = 0
+        self.ddp = None  # built by the phase's first train_step
+
+    def _train_net(self) -> torch.nn.Module:
+        """What the training forward runs through: the model, or under a
+        process group its ``DistributedDataParallel`` wrapper, whose bucketed
+        all-reduce averages the gradients (the JAX step's ``pmean(grads)``).
+        Buffers are not broadcast from rank 0: :meth:`_average_batch_stats`
+        averages them. The LayerNorms ``DilatedConv.norm`` of LiteMono are
+        never used by its forward (nor by the reference's): in a phase that
+        trains them DDP looks for unused parameters after every forward, or
+        it would stop at the phase's second step."""
+        if not pdist.is_initialized():
+            return self.model
+        if self.ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            unused = any(p.requires_grad for m in self.model.modules() if isinstance(m, DilatedConv)
+                         for p in m.norm.parameters())
+            self.ddp = DistributedDataParallel(
+                self.model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                broadcast_buffers=False, find_unused_parameters=unused, init_sync=False)
+        return self.ddp
+
+    def _average_batch_stats(self) -> None:
+        """Average every BatchNorm running statistic of every module, frozen
+        ones included, over the ranks, in one all-reduce (the JAX step's
+        ``pmean`` of ``batch_stats``; DDP's ``broadcast_buffers`` would copy
+        rank 0's instead)."""
+        pdist.all_reduce_mean([b for name, b in self.model.named_buffers() if name.endswith(("running_mean", "running_var"))])
 
     def lr_at(self, count: int) -> float:
         """Step-halving schedule: base * 0.5 ** (epoch // scheduler_step_size)."""
@@ -200,22 +248,26 @@ class Trainer:
             yield self._ready(*pending)
 
     def _make_train_loader(self, epoch_seed: int) -> BatchLoader:
-        filenames = sample_epoch_filenames(read_split(self.cfg.split, "train"), self.cfg.epoch_size, self.B,
+        """This rank's batches of the epoch: the epoch's draw of global
+        batches (the same on every rank), each rank loading every
+        ``world``-th batch of ``B`` rows (the JAX package's per-host shards)."""
+        filenames = sample_epoch_filenames(read_split(self.cfg.split, "train"), self.cfg.epoch_size, self.global_B,
                                            seed=epoch_seed)
         return BatchLoader(
             make_dataset(self.cfg, filenames, is_train=True), self.B, shuffle=self.cfg.epoch_size <= 0, drop_last=True,
-            num_workers=self.cfg.num_workers, seed=self.cfg.seed, prefetch=self.cfg.prefetch_depth,
+            num_workers=self.cfg.num_workers, seed=self.cfg.seed, shard=(self.rank, self.world),
+            prefetch=self.cfg.prefetch_depth,
         )
 
     def _make_val_loader(self) -> BatchLoader:
         which = "val" if split_exists(self.cfg.split, "val") else "train"
         ds = make_dataset(self.cfg, read_split(self.cfg.split, which), load_depth=True)
         return BatchLoader(ds, self.B, shuffle=True, drop_last=True, num_workers=self.cfg.num_workers,
-                           seed=self.cfg.seed + 1)
+                           seed=self.cfg.seed + 1, shard=(self.rank, self.world))
 
     # ------------------------------------------------------------ train step
 
-    def _model_outputs(self, inputs: Dict, bool_CmpFlow: bool, bool_MotMask: bool, generator=None) -> Dict:
+    def _model_outputs(self, inputs: Dict, bool_CmpFlow: bool, bool_MotMask: bool, generator=None, net=None) -> Dict:
         """The networks' forward in the compute dtype, every output float32.
 
         Under ``compute_dtype="bfloat16"`` the networks run inside
@@ -223,15 +275,17 @@ class Trainer:
         stay float32), and the region ends at the model's outputs, which are
         cast to float32 as the JAX package's ``_outputs_to_f32`` casts them:
         the sample coordinates, the warp and photometric kernels, RANSAC and
-        the losses see float32 only."""
+        the losses see float32 only. ``net`` is the model (default) or its
+        training wrapper."""
+        net = net or self.model
         if self.compute_dtype == torch.float32:
-            return self.model(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
+            return net(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
         with torch.autocast(device_type=self.device.type, dtype=self.compute_dtype):
-            outputs = self.model(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
+            outputs = net(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
         return {k: v.float() if v.is_floating_point() else v for k, v in outputs.items()}
 
-    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int):
-        outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator)
+    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int, net=None):
+        outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator, net)
         view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
                        automask=self.automask)
         losses = compute_losses(
@@ -246,16 +300,27 @@ class Trainer:
         the device, from :meth:`to_device`). ``generator`` (on the device)
         draws drop-path masks, RANSAC hypotheses and the automask noise;
         ``step`` is the step within the phase (loss-weight ramp). Returns
-        the detached losses dict of ``compute_losses``."""
+        the detached losses dict of ``compute_losses``, averaged over the
+        ranks under a process group (each rank's ``batch`` is its own rows)."""
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_at(self.opt_steps)
         self.optimizer.zero_grad(set_to_none=True)
         self.model.train()
-        _, losses = self._forward_losses(self.process_inputs_device(batch), generator, step)
+        _, losses = self._forward_losses(self.process_inputs_device(batch), generator, step, self._train_net())
         losses["loss"].backward()
         self.optimizer.step()
         self.opt_steps += 1
-        return {k: v.detach() for k, v in losses.items()}
+        self._average_batch_stats()
+        return self._average_losses(losses)
+
+    def _average_losses(self, losses: Dict) -> Dict:
+        """Detached losses, averaged over the ranks: every rank scores the
+        same number of rows, so their mean is the global batch's."""
+        losses = {k: v.detach() for k, v in losses.items()}
+        if self.world > 1:
+            losses = {k: v.clone() for k, v in losses.items()}
+            pdist.all_reduce_mean(list(losses.values()))
+        return losses
 
     # -------------------------------------------------------------- training
 
@@ -265,10 +330,10 @@ class Trainer:
         self.g_step = 0
         for phase_i, phase in enumerate(PHASES):
             num_epoch = self.cfg.epoch_schedules[phase_i]
-            print(f"======== {phase.upper()} - Num Epochs={num_epoch} ========")
+            self.print(f"======== {phase.upper()} - Num Epochs={num_epoch} ========")
             if num_epoch > 0:
                 self.run_phase(phase, num_epoch)
-            print(f"======== {phase.upper()} - Num Epochs={num_epoch} ========\n")
+            self.print(f"======== {phase.upper()} - Num Epochs={num_epoch} ========\n")
 
     def run_phase(self, phase: str, num_epoch: int):
         cfg = self.cfg
@@ -284,7 +349,7 @@ class Trainer:
         self.start_time = time.time()
         self._val_iter = None
         prof = None
-        if cfg.profile:
+        if cfg.profile and pdist.is_main_process():
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -293,7 +358,7 @@ class Trainer:
         try:
             for epoch in range(num_epoch):
                 self.epoch = epoch
-                print()
+                self.print()
                 loader = self._make_train_loader(epoch_seed=cfg.seed + 1000 * epoch + 101 * PHASES.index(phase))
                 loader.set_epoch(epoch)
                 data_t, comp_t = 0.0, 0.0
@@ -324,7 +389,9 @@ class Trainer:
     def val(self):
         """Score one validation batch for training monitoring (Trainer.py:175-195;
         val is never used for model selection): eval mode, no gradients, the
-        losses and, where the batch has LiDAR points, the depth metrics."""
+        losses and, where the batch has LiDAR points, the depth metrics. Under
+        a process group each rank scores its shard of the global batch, and
+        both are the global batch's means, the same on every rank."""
         try:
             if self._val_iter is None:
                 self._val_loader = self._make_val_loader()
@@ -341,6 +408,7 @@ class Trainer:
             with torch.no_grad():
                 outputs, losses = self._forward_losses(
                     self.process_inputs_device(self.to_device(batch)), self.generator, self.step)
+                losses = self._average_losses(losses)
                 if "depth_gt" in batch:
                     losses.update(self.depth_metrics(batch, outputs))
         finally:
@@ -351,13 +419,29 @@ class Trainer:
         """Sparse-point depth metrics of ``outputs[('disp_scaled', 0, 0)]``
         against the host batch's LiDAR points, on the device; with ``labels``,
         also per mask label of ``mask_pts`` (the labels at the points), and
-        ``sample_weight`` drops padded samples (``ops/metrics.py``)."""
+        ``sample_weight`` drops padded samples (``ops/metrics.py``). Under a
+        process group ``inputs`` and ``outputs`` hold this rank's rows, and
+        the metrics are the global batch's: the weighted sums and the counts
+        are summed over the ranks, then divided."""
         cfg = self.cfg
-        return depth_metrics(
+        out = depth_metrics(
             outputs[("disp_scaled", 0, 0)], inputs["depth_gt"], inputs["depth_valid"], inputs["gt_dim"],
             cfg.eval_img_bound, min_depth=cfg.eval_min_depth, max_depth=float(cfg.eval_max_depth),
             mask_pts=mask_pts, labels=labels, sample_weight=sample_weight,
         )
+        if self.world == 1:
+            return out
+        weight = torch.ones(len(inputs["depth_gt"])) if sample_weight is None else torch.as_tensor(sample_weight)
+        count = weight.float().sum().to(outputs[("disp_scaled", 0, 0)].device)
+        pairs = [k for k in out if k not in DEPTH_METRIC_NAMES]  # per label: (sum of metric x count, count)
+        n = len(DEPTH_METRIC_NAMES)
+        # ops/metrics.py divides each weighted sum by max(count, 1).
+        flat = torch.cat([torch.stack([out[k] for k in DEPTH_METRIC_NAMES]) * count.clamp(min=1.0), count.reshape(1)]
+                         + [torch.stack(out[k]) for k in pairs])
+        pdist.all_reduce_sum([flat])
+        reduced = {k: flat[i] / flat[n].clamp(min=1.0) for i, k in enumerate(DEPTH_METRIC_NAMES)}
+        reduced.update({k: (flat[n + 1 + 2 * j], flat[n + 2 + 2 * j]) for j, k in enumerate(pairs)})
+        return reduced
 
     # --------------------------------------------------------------- predict
 
@@ -366,7 +450,8 @@ class Trainer:
         batch, for the eval CLIs (the JAX package's ``Trainer.predict``):
         running BatchNorm statistics, no drop-path, no gradients. Returns the
         model's outputs on the device, images NCHW; the model's mode is
-        restored afterwards."""
+        restored afterwards. Under a process group each rank predicts its own
+        rows."""
         images = {k: v for k, v in batch.items() if isinstance(k, tuple) and k[0] == "color_aug"}
         if not images:
             raise ValueError("predict() needs ('color_aug', <frame>, 0) keys in the batch; none were present")
@@ -383,27 +468,32 @@ class Trainer:
 
     def save_model(self, phase: str, epoch: int):
         """``models/<phase>_<epoch:02>/``: the seven module files, ``adam.pth``
-        and the run's ``opt.json``."""
-        folder = join_dir(self.log_path, "models", f"{phase}_{epoch:02}")
-        ckpt.save_model(self.model, folder, height=self.H, width=self.W, verbose=True)
-        ckpt.save_opt_state(self.optimizer, folder)
-        self.cfg.save(osp.join(folder, "opt.json"))
+        and the run's ``opt.json``, written by rank 0 (the bare model's keys,
+        the reference's); every rank waits until it is written."""
+        if pdist.is_main_process():
+            folder = join_dir(self.log_path, "models", f"{phase}_{epoch:02}")
+            ckpt.save_model(self.model, folder, height=self.H, width=self.W, verbose=True)
+            ckpt.save_opt_state(self.optimizer, folder)
+            self.cfg.save(osp.join(folder, "opt.json"))
+        pdist.barrier()
 
     def load_model(self):
         path = osp.expanduser(self.cfg.load_ckpt)
         if not osp.isdir(path):
             raise FileNotFoundError(f"Cannot find checkpoint folder {path}")
-        print(f"loading model from folder {path}")
-        ckpt.load_model(self.model, path, height=self.H, width=self.W)
+        self.print(f"loading model from folder {path}")
+        ckpt.load_model(self.model, path, height=self.H, width=self.W, verbose=pdist.is_main_process())
 
     def load_optimizer(self, folder: str) -> None:
         """Restore the folder's ``adam.pth`` into the current phase's Adam,
         and with it the step count that drives the learning-rate schedule."""
         if ckpt.load_opt_state(self.optimizer, folder):
             self.opt_steps = max((int(s["step"]) for s in self.optimizer.state.values()), default=0)
-            print(f"restored optimizer state from {folder}")
+            self.print(f"restored optimizer state from {folder}")
 
     def save_opt(self):
+        if not pdist.is_main_process():
+            return
         models_dir = join_dir(self.log_path, "models")
         if self.cfg.print_opt:
             for k, v in self.cfg.to_dict().items():
@@ -431,7 +521,9 @@ class Trainer:
                              "scalars": dict(zip(scalars, values))})
 
     def log_time(self, batch_idx, duration, loss, data_time, gpu_time):
-        samples_per_sec = self.B / duration
+        if not pdist.is_main_process():
+            return
+        samples_per_sec = self.global_B / duration
         time_sofar = time.time() - self.start_time
         left = (self.num_total_steps / self.step - 1.0) * time_sofar if self.step > 0 else 0
         self.history.append({"mode": "time", "phase": self.phase, "g_step": self.g_step, "epoch": self.epoch,
@@ -442,3 +534,7 @@ class Trainer:
             f"| loss: {loss:.5f} | time elapsed: {sec_to_hm_str(time_sofar)} "
             f"| time left: {sec_to_hm_str(left)} | CPU/GPU time: {data_time:0.1f}s/{gpu_time:0.1f}s"
         )
+
+    def print(self, s=""):
+        if pdist.is_main_process():
+            print(s)

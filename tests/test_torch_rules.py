@@ -96,8 +96,9 @@ def test_trainer_refuses_what_is_not_ported():
     cfg = DynamoConfig(dataset="kitti", height=64, width=96, batch_size=1, weights_init="scratch",
                        depth_model="monodepthv2", compute_dtype="bfloat16")
     assert trainer_mod.Trainer(cfg, device="cpu").compute_dtype == torch.bfloat16
+    # One card per process: two devices need a launch of two processes.
     cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1, weights_init="scratch", num_devices=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="world size is 1"):
         trainer_mod.Trainer(cfg, device="cpu")
 
 

@@ -1,0 +1,185 @@
+"""Rank processes of ``tests/test_torch_ddp.py`` (this file holds no test).
+
+Each function runs in a process that ``torch.multiprocessing`` spawned, as
+rank ``rank`` of ``world``: it exports torchrun's environment, joins the
+gloo group through ``init_distributed``, runs the port on the CPU with one
+thread, and pickles what it saw into ``out_dir``. Only the port is
+imported here, so a rank starts without JAX.
+"""
+
+import os
+import pickle
+import socket
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from dynamo_depth_torch.parallel import dist as pdist
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(fn, args, world=2):
+    """Start ``fn(rank, world, port, *args)`` on ``world`` spawned processes."""
+    return torch.multiprocessing.start_processes(fn, args=(world, free_port(), *args), nprocs=world, join=False,
+                                                 start_method="spawn")
+
+
+def join_ranks(ctx, timeout=300):
+    """Wait for the ranks of :func:`start_ranks`; raises if one fails (with
+    its traceback) or if they outlast ``timeout`` s, and leaves none
+    running."""
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def run_ranks(fn, args, world=2, timeout=300):
+    join_ranks(start_ranks(fn, args, world), timeout)
+
+
+def _join(rank, world, port):
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    assert pdist.init_distributed("cpu")
+    assert dist.get_backend() == "gloo" and pdist.world_size() == world and pdist.rank() == rank
+
+
+def _numpy_state(module):
+    return {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
+
+
+def _fingerprint(tensors):
+    """``state_fingerprint`` of a dict of tensors."""
+    holder = torch.nn.Module()
+    for i, (k, v) in enumerate(sorted(tensors.items())):
+        holder.register_buffer(f"t{i}", v.detach())
+    return pdist.state_fingerprint(holder).tolist()
+
+
+def step_rank(rank, world, port, out_dir):
+    """One step of each phase of ``inputs.pkl`` from its weights, on this
+    rank's rows, with the JAX draws of this rank's device injected."""
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.ops import ground_plane
+    from dynamo_depth_torch.training import losses as losses_mod
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    _join(rank, world, port)
+    inputs = pickle.loads((Path(out_dir) / "inputs.pkl").read_bytes())
+    cfg = DynamoConfig(**inputs["cfg"])
+    local = {k: v[rank * cfg.batch_size:(rank + 1) * cfg.batch_size] for k, v in inputs["batch"].items()}
+    records = {}
+    for phase in inputs["phases"]:
+        trainer = Trainer(cfg, device="cpu", phase=phase, steps_per_epoch=inputs["steps_per_epoch"],
+                          drop_path_rate=0.0)
+        trainer.model.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["state"].items()})
+        noise, indices = [], []
+        ground_plane.draw_sample_idx = lambda *a, **k: torch.tensor(indices.pop(0))
+        losses_mod.draw_automask_noise = lambda *a, **k: torch.tensor(noise.pop(0))
+
+        def inject_draws():
+            for queue, drawn in zip((noise, indices), inputs["draws"][phase][rank]):
+                queue[:] = list(drawn)
+
+        # This rank's own gradient, without the wrapper, then averaged over
+        # the ranks here; the weights and statistics are restored after.
+        saved = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        inject_draws()
+        trainer.model.train()
+        _, own = trainer._forward_losses(trainer.process_inputs_device(trainer.to_device(local)),
+                                         torch.Generator().manual_seed(0), inputs["step"], trainer.model)
+        own["loss"].backward()
+        own_grads = {k: p.grad.clone() for k, p in trainer.model.named_parameters() if p.grad is not None}
+        pdist.all_reduce_mean(list(own_grads.values()))
+        trainer.model.zero_grad(set_to_none=True)
+        trainer.model.load_state_dict(saved)
+
+        inject_draws()
+        local_stats = {}
+        average = trainer._average_batch_stats
+
+        def record_then_average():
+            local_stats.update({k: v.numpy().copy() for k, v in trainer.model.named_buffers()
+                                if k.endswith(("running_mean", "running_var"))})
+            average()
+
+        trainer._average_batch_stats = record_then_average
+        losses = trainer.train_step(trainer.to_device(local), torch.Generator().manual_seed(0), inputs["step"])
+        assert not indices and not noise, "every scale drew its RANSAC hypotheses and automask noise once"
+        grads = {k: p.grad for k, p in trainer.model.named_parameters() if p.grad is not None}
+        records[phase] = {
+            "losses": {k: v.item() for k, v in losses.items()},
+            "local_stats": local_stats,
+            "wrapper": type(trainer.ddp).__name__,
+            "fingerprints": (pdist.state_fingerprint(trainer.model).tolist(), _fingerprint(grads)),
+            # Against the mean of the ranks' own gradients: the same keys, and
+            # each tensor's largest difference over its largest entry.
+            "own_grad_keys": (sorted(grads), sorted(own_grads)),
+            "own_grad_err": max(float((grads[k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                                for k, g in own_grads.items()),
+        }
+        if rank == 0:  # what the test holds to the JAX step
+            records[phase].update(state=_numpy_state(trainer.model), grads={k: g.numpy().copy() for k, g in grads.items()})
+    (Path(out_dir) / f"step_rank{rank}.pkl").write_bytes(pickle.dumps(records))
+    dist.destroy_process_group()
+
+
+def curriculum_rank(rank, world, port, out_dir, argv):
+    """``check_replicated`` on a copy of the weights that rank 1 perturbed,
+    then ``dynamo_depth_torch.train.main(argv + --log_dir <out_dir>/rank<r>)``
+    with every step's wrapper and every phase's weights before and after
+    recorded."""
+    from dynamo_depth_torch import train as train_entry
+    from dynamo_depth_torch.models.model import DynamoModel
+    from dynamo_depth_torch.training import trainer as trainer_mod
+
+    _join(rank, world, port)
+    out = {}
+    torch.manual_seed(0)
+    model = DynamoModel(drop_path_rate=0.0)
+    pdist.check_replicated(model)  # identical: passes
+    if rank == 1:
+        with torch.no_grad():
+            next(model.parameters())[0].view(-1)[0] += 1e-7
+    try:
+        pdist.check_replicated(model)
+    except RuntimeError as e:
+        out["replication_error"] = str(e)
+
+    steps, phases = [], {}
+    train_step, run_phase = trainer_mod.Trainer.train_step, trainer_mod.Trainer.run_phase
+
+    def recorded_step(self, batch, generator, step):
+        losses = train_step(self, batch, generator, step)
+        steps.append({"phase": self.phase, "wrapper": id(self.ddp), "type": type(self.ddp).__name__,
+                      "module_is_model": self.ddp.module is self.model})
+        return losses
+
+    def recorded_phase(self, phase, num_epoch):
+        before = {k: v.detach().clone() for k, v in self.model.named_parameters()}
+        run_phase(self, phase, num_epoch)
+        moved = {k.split(".")[0] for k, v in self.model.named_parameters() if not torch.equal(v, before[k])}
+        phases[phase] = {"moved": sorted(moved), "fingerprint": pdist.state_fingerprint(self.model).tolist()}
+
+    trainer_mod.Trainer.train_step, trainer_mod.Trainer.run_phase = recorded_step, recorded_phase
+    trainer = train_entry.main(list(argv) + ["--log_dir", str(Path(out_dir) / f"rank{rank}")], device="cpu")
+    out.update(steps=steps, phases=phases, history=trainer.history, local_world_size=trainer.cfg.local_world_size,
+               global_B=trainer.global_B)
+    (Path(out_dir) / f"curriculum_rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.destroy_process_group()
+
