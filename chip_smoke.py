@@ -88,7 +88,27 @@ Phases (any failure exits non-zero, nothing is caught):
    the bytes all-reduced per step; the same two ranks at 64x96 on the card
    against the two on the CPU, the loss terms RANSAC does not enter at
    phase 5's tolerance (the others recorded); (c) ``eval.depth``
-   with the two ranks, its tables equal to phase 8's one-process tables.
+   with the two ranks, its tables equal to phase 8's one-process tables;
+12. (a) the training visualisation: the curriculum from the entry point on
+   tiny_kitti at 192x640, batch 3, one step per phase, without
+   ``--no_train_vis`` and with a recording stand-in for wandb in
+   ``sys.modules`` (never the real one: no network): per step 3 grids of
+   576x1920x3, finite, in [0, 1], the train and val scalars under the JAX
+   package's names, 6 launches of K1 and none of K2-K4 in each ``log_vis``
+   call, its wall ms beside the step's; ``vis_grids`` of one batch on the
+   card against the CPU from the same weights (``VIS_TOL`` on the first two
+   rows, the colour wheels as phase 8 holds frames); (b) phase 7's last
+   folder with its Adam state written in the JAX package's ``.msgpack``
+   layout: ``eval.depth`` from it equal to phase 8's table, its time beside
+   the ``.pth`` folder's, and one ``fine_tune`` step resumed from each
+   folder (and once more from the ``.pth`` one, which says how far the
+   card's step repeats bitwise): bit-equal losses, the states within one
+   Adam step's round-off, and the same two steps bit-equal on the CPU; (c) ``bench/grad_compare.py`` at its
+   defaults on the card and the CPU, then ``--diff``: the terms outside
+   RANSAC within phase 5's 1e-4, update norms within ``UPDATE_NORM_TOL``;
+   (d) ``bench/profile_top_ops.py`` on a ``--profile`` trace of 2
+   ``fine_tune`` steps, its counts of the four kernels held to the steps'
+   and the validation batches' launches.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -562,9 +582,13 @@ def timed_steps(trainer, batch, gen, smi, label):
     for k, n in counts.items():
         if n != per_step[k] * steps:
             raise SystemExit(f"{label}: {k} launched {n} times in {steps} steps, expected {per_step[k] * steps}")
-    # Every watched weight that receives a gradient has moved (the dilated
-    # blocks' unused LayerNorm receives none).
-    trained = [(n, p) for n, p in trainer.model.named_parameters() if n in watch and p.grad is not None]
+    # Every watched weight whose gradient can move it has moved. The dilated
+    # blocks' unused LayerNorm receives no gradient; and Adam moves a weight
+    # by about lr * g / (|g| + 1e-8), which for |g| far below its eps 1e-8
+    # (~1e-15 on LiteMono's stage-2 XCA qkv bias under bfloat16, found on
+    # the card) falls under the weight's float32 spacing in most steps.
+    trained = [(n, p) for n, p in trainer.model.named_parameters()
+               if n in watch and p.grad is not None and float(p.grad.abs().max()) > 1e-8]
     frozen = [n for n, p in trained if torch.equal(p.detach(), watch[n])]
     if not trained or frozen:
         raise SystemExit(f"{label}: weights that did not move: {frozen} of {len(trained)} watched")
@@ -957,6 +981,386 @@ def run_ddp(smi, phase7, phase8_tables):
     return {"nccl1": a, "gloo2": ranks, "wall_s": {"11a": wall_a, "11bc": wall_b}}
 
 
+class RecordingWandb:
+    """Phase 12a's stand-in for wandb in ``sys.modules``: ``init``, ``log``
+    and ``Image`` record their arguments, so the real wandb (and its
+    network) is never reached."""
+
+    def __init__(self):
+        self.inits, self.logs = [], []
+
+    def init(self, **kwargs):
+        self.inits.append(kwargs)
+
+    def log(self, data, step=None):
+        self.logs.append((data, step))
+
+    def Image(self, array):  # noqa: N802 - wandb's name
+        return np.array(array)
+
+
+def grids_agree(what, card, cpu, h):
+    """Phase 12a: the card's visualisation grids against the CPU's. The
+    first two rows of each grid (images, reconstruction, L1, disparity,
+    mask, depth) to VIS_TOL; the colour wheels of the third as phase 8 holds
+    frames: 99.9% of the values within one level of 255 (the hue of a flow
+    near zero, at the focus of expansion, turns with round-off)."""
+    if card.shape != cpu.shape:
+        raise SystemExit(f"{what}: grids of shape {card.shape} and {cpu.shape}")
+    diff = np.abs(card - cpu)
+    agree(f"{what}: rows 1-2 max abs", float(diff[:, :2 * h].max()), VIS_TOL)
+    agree(f"{what}: colour wheels, share more than one level apart", float((diff[:, 2 * h:] > 1 / 255).mean()), 1e-3)
+
+
+# Phase 12a's tolerance on the grids' first two rows, card against CPU:
+# float32 networks whose convolutions sum in other orders (phase 5 holds the
+# losses to 1e-4 relative), on values in [0, 1], the L1 and depth columns
+# divided by their maxima.
+VIS_TOL = 1e-3
+
+
+def run_vis(smi, work):
+    """12a: the entry point's curriculum with the training visualisation on,
+    through a recording wandb; each log_vis call's launches and wall ms; then
+    log_vis of one batch on the card and on the CPU from the same weights."""
+    import torch
+
+    from dynamo_depth_torch import train as train_entry
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.data.loader import collate
+    from dynamo_depth_torch.data.splits import read_split
+    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dynamo_depth_torch.training import trainer as trainer_mod
+
+    root = Path(__file__).resolve().parent
+    argv = ["-d", "kitti", "-n", "vis", "--data_path", str(root / "assets" / "tiny_kitti") + "/", "--split",
+            "tiny_kitti", "--height", str(H), "--width", str(W), "--batch_size", str(B), "--weights_init", "scratch",
+            "--epoch_schedules", "1", "1", "1", "1", "--epoch-size", "1", "--log_frequency", "1",
+            "--log_dir", str(work / "logs"), "--print_opt", ""]
+    print(f"12a: python -m dynamo_depth_torch.train {' '.join(argv)} (wandb: a recording stand-in)")
+    calls, steps = [], []
+    log_vis, train_step = trainer_mod.Trainer.log_vis, trainer_mod.Trainer.train_step
+
+    def timed(fn, records):
+        def wrapper(self, *args):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            records.append({"phase": self.phase, "ms": (time.perf_counter() - t0) * 1e3,
+                            "launches": {k: after[k] - before[k] for k in after}})
+            return out
+        return wrapper
+
+    stub = RecordingWandb()
+    saved = sys.modules.get("wandb")
+    sys.modules["wandb"] = stub
+    trainer_mod.Trainer.log_vis, trainer_mod.Trainer.train_step = timed(log_vis, calls), timed(train_step, steps)
+    try:
+        reset_launch_counts()
+        trainer = train_entry.main(argv)
+        launches = launch_counts()
+    finally:
+        trainer_mod.Trainer.log_vis, trainer_mod.Trainer.train_step = log_vis, train_step
+        if saved is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved
+    cfg = trainer.cfg
+    if stub.inits != [{"project": "Dynamo", "name": "vis", "notes": cfg.comment, "config": cfg.to_dict()}]:
+        raise SystemExit(f"wandb.init was called with {stub.inits}")
+    expected = {"warp_fwd": 2 * len(cfg.scales), "warp_bwd": 0, "photometric_fwd": 0, "photometric_bwd": 0}
+    if [c["phase"] for c in calls] != list(trainer_mod.PHASES) or any(c["launches"] != expected for c in calls):
+        raise SystemExit(f"log_vis calls {calls}, expected one per phase launching {expected}")
+    vis = [(data, step) for data, step in stub.logs if any(k.startswith("vis/") for k in data)]
+    scalars = [(data, step) for data, step in stub.logs if not any(k.startswith("vis/") for k in data)]
+    for g_step, (data, step) in enumerate(vis):
+        if step != g_step or sorted(data) != [f"vis/train_{j}" for j in range(B)]:
+            raise SystemExit(f"step {g_step}: logged {sorted(data)} at step {step}")
+        for key, grid in data.items():
+            if grid.shape != (3 * H, 3 * W, 3) or not np.isfinite(grid).all() or grid.min() < 0 or grid.max() > 1:
+                raise SystemExit(f"step {g_step} {key}: grid of shape {grid.shape}, range {grid.min()}..{grid.max()}")
+    history = [h for h in trainer.history if h["mode"] in ("train", "val")]
+    if len(vis) != len(trainer_mod.PHASES) or len(scalars) != len(history) or any(
+            data != {f"{h['mode']}_{k}": v for k, v in h["scalars"].items()} or step != h["g_step"]
+            for (data, step), h in zip(scalars, history)):
+        raise SystemExit("the scalars logged to wandb are not {mode}_{key} of each train and val record")
+    print(f"  4 phases x 1 step: wandb.init once (project Dynamo); per step {B} grids vis/train_j of "
+          f"{3 * H}x{3 * W}x3, finite, in [0, 1]; train_ and val_ scalars as the JAX package names them "
+          f"({', '.join(sorted(scalars[0][0])[:3])}, ...); launches per log_vis call {calls[0]['launches']}")
+    for c, st in zip(calls, steps):
+        print(f"  {c['phase']}: log_vis {c['ms']:.1f} ms wall (rendering and the host copies), the step "
+              f"{st['ms']:.1f} ms, on {smi}")
+
+    # log_vis of one batch on the card and on the CPU, from the same weights.
+    cpu = trainer_mod.Trainer(DynamoConfig.from_dict(cfg.to_dict()), device="cpu", phase=trainer.phase)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
+    ds = trainer.get_dataset(read_split(cfg.split, "train")[:B])
+    batch = collate([ds.get_item(i) for i in range(B)])
+    t0 = time.perf_counter()
+    card_grids = trainer.vis_grids(trainer.to_device(batch))
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu_grids = cpu.vis_grids(cpu.to_device(batch))
+    grids_agree(f"log_vis grids of one tiny_kitti batch ({trainer.phase}), card vs CPU", card_grids, cpu_grids, H)
+    del cpu
+    return {"calls": calls, "steps": steps, "launches": launches, "vis_ms": [c["ms"] for c in calls],
+            "step_ms": [s["ms"] for s in steps], "grid_ms_one_batch": card_ms,
+            "launches_per_log_vis": calls[0]["launches"], "folder": work / "logs" / "vis" / "models" / "fine_tune_00"}
+
+
+def run_jax_folder(smi, work, folder, phase8_table):
+    """12b: phase 7's last folder written in the JAX package's layout
+    (``.msgpack`` modules, ``meta.json``, optax's ``adam.msgpack``), then
+    ``eval.depth`` and a resumed fine_tune step from it on the card, against
+    the same from the ``.pth`` folder."""
+    import torch
+
+    from dynamo_depth_torch import train as train_entry
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.eval import depth
+    from dynamo_depth_torch.training import checkpoint as ckpt
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    root = Path(__file__).resolve().parent
+    cfg = DynamoConfig.from_dict(json.loads((folder / "opt.json").read_text()))
+    cfg.load_ckpt = str(folder)
+    source = Trainer(cfg)
+    source.load_optimizer(str(folder))
+    jax_folder = work / "logs" / "jax_layout" / "models" / "fine_tune_00"
+    t0 = time.perf_counter()
+    ckpt.save_jax_folder(source.model, str(jax_folder), height=H, width=W, optimizer=source.optimizer)
+    write_s = time.perf_counter() - t0
+    files = sorted(p.name for p in jax_folder.iterdir())
+    size = sum(p.stat().st_size for p in jax_folder.iterdir())
+    print(f"12b: {folder.name} with its Adam state (step {source.opt_steps}) written in the JAX package's layout in "
+          f"{write_s:.1f} s: {', '.join(files)} ({size / 2**20:.1f} MiB)")
+    if any(f.endswith(".pth") for f in files) or "adam.msgpack" not in files or "meta.json" not in files:
+        raise SystemExit(f"the JAX folder holds {files}")
+    del source
+
+    args = ["-d", "kitti", "--data_path", str(root / "assets" / "tiny_kitti") + "/", "--split", "tiny_kitti",
+            "--height", str(H), "--width", str(W), "-b", str(B), "--num_workers", "2"]
+    tables, eval_s = {}, {}
+    for label, path in (("msgpack", jax_folder), ("pth", folder)):
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            out = depth.main(args + ["-l", str(path), "--eval_dir", str(work / "eval_jax_folder" / label)],
+                             device="cuda")
+        eval_s[label] = time.perf_counter() - t0
+        if "FAILED" in log.getvalue() or "PARTIAL" in log.getvalue():
+            raise SystemExit(f"eval.depth did not load every module of {path}:\n{log.getvalue()}")
+        tables[label] = [line for line in out["lines"] if "Model Path" not in line]
+    reference = [line for line in Path(phase8_table).read_text().splitlines(keepends=True) if "Model Path" not in line]
+    if tables["msgpack"] != tables["pth"] or "".join(tables["pth"]).split() != "".join(reference).split():
+        raise SystemExit(f"eval.depth tables differ:\n{''.join(tables['msgpack'])}\n{''.join(tables['pth'])}")
+    print(f"  eval.depth -l <JAX folder> on the card: its table equals the .pth folder's and phase 8's; "
+          f"{eval_s['msgpack']:.2f} s from the .msgpack folder, {eval_s['pth']:.2f} s from the .pth one, on {smi}")
+
+    # One fine_tune step resumed from each folder, and once more from the
+    # .pth folder: the step's backward is not bitwise repeatable on the card
+    # (atomic adds in the backward of bilinear upsampling and of reflection
+    # padding), so the .pth folder's own repeat says what bitwise means here.
+    resume = ["-d", "kitti", "-n", "resume", "--data_path", str(root / "assets" / "tiny_kitti") + "/", "--split",
+              "tiny_kitti", "--height", str(H), "--width", str(W), "--batch_size", str(B), "--weights_init",
+              "scratch", "--epoch_schedules", "0", "0", "0", "1", "--epoch-size", "1", "--log_frequency", "1",
+              "--no_train_vis", "--print_opt", "", "--resume_optim"]
+    runs = {}
+    for label, path in (("msgpack", jax_folder), ("pth", folder), ("pth again", folder)):
+        trainer = train_entry.main(resume + ["--load_ckpt", str(path), "--log_dir",
+                                             str(work / f"resume_{label.replace(' ', '_')}")])
+        params = [p for group in trainer.optimizer.param_groups for p in group["params"]]
+        runs[label] = {"state": {k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+                       "adam": [None if p not in trainer.optimizer.state else
+                                (float(trainer.optimizer.state[p]["step"]), trainer.optimizer.state[p]["exp_avg"].clone(),
+                                 trainer.optimizer.state[p]["exp_avg_sq"].clone()) for p in params],
+                       "losses": [h["scalars"] for h in trainer.history if h["mode"] == "train"],
+                       "opt_steps": trainer.opt_steps, "lr": trainer.lr_at(trainer.opt_steps - 1)}
+        del trainer
+    a, b, c = runs["msgpack"], runs["pth"], runs["pth again"]
+    if a["opt_steps"] != b["opt_steps"] or a["losses"] != b["losses"]:
+        raise SystemExit(f"resumed steps differ: Adam steps {a['opt_steps']} / {b['opt_steps']}, losses "
+                         f"{a['losses']} / {b['losses']}")
+
+    def differ(x, y):
+        return [k for k in x["state"] if not torch.equal(x["state"][k], y["state"][k])]
+
+    def adam_differ(x, y):
+        return sum((sx is None) != (sy is None) or (sx is not None and not (
+            sx[0] == sy[0] and torch.equal(sx[1], sy[1]) and torch.equal(sx[2], sy[2])))
+            for sx, sy in zip(x["adam"], y["adam"]))
+
+    moved, repeat = differ(a, b), differ(b, c)
+    print(f"  one fine_tune step resumed with --resume_optim from each folder: Adam's count {a['opt_steps']} on both, "
+          f"train losses bit-equal (loss {a['losses'][0]['loss']:.6f}); weights and Adam state after the step: "
+          f".msgpack vs .pth {len(moved)} of {len(a['state'])} state entries and {adam_differ(a, b)} Adam entries "
+          f"not bit-equal; .pth vs .pth again {len(repeat)} and {adam_differ(b, c)}")
+    if moved and not repeat:
+        raise SystemExit(f"the step from the .msgpack folder differs from the .pth folder's, which repeats: {moved[:5]}")
+
+    def beyond(x, y):
+        """State entries further apart than one Adam step's round-off: 1e-2
+        of its learning rate plus 2 float32 spacings of the value
+        (tests/test_torch_train_step.py's bound)."""
+        out = []
+        for k, u in x["state"].items():
+            v = y["state"][k]
+            if not u.is_floating_point():
+                out += [] if torch.equal(u, v) else [k]
+                continue
+            tol = 1e-2 * x["lr"] + 2 * torch.finfo(u.dtype).eps * torch.maximum(u.abs(), v.abs())
+            out += [k] if bool(((u - v).abs() > tol).any()) else []
+        return out
+
+    if moved:
+        worst = max(float((a["state"][k] - b["state"][k]).abs().max()) for k in moved)
+        spread = max(float((b["state"][k] - c["state"][k]).abs().max()) for k in repeat)
+        far, far_repeat = beyond(a, b), beyond(b, c)
+        print(f"  not bitwise repeatable on the card: max abs state difference {worst:.3e} (.msgpack vs .pth), "
+              f"{spread:.3e} (.pth vs .pth again); entries beyond 1e-2 of the learning rate ({a['lr']:.1e}) plus 2 "
+              f"float32 spacings: {len(far)} and {len(far_repeat)}")
+        if far:
+            raise SystemExit(f"the step from the .msgpack folder lies beyond one step's round-off of the .pth "
+                             f"folder's: {far[:5]}")
+    # The same two resumed steps on the CPU, whose step repeats bitwise (at
+    # 96x320: the weights do not depend on the size), must be bit-equal.
+    cpu_runs = {}
+    small = resume[:resume.index("--height")] + ["--height", "96", "--width", "320"] + \
+        resume[resume.index("--batch_size"):]
+    for label, path in (("msgpack", jax_folder), ("pth", folder)):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            trainer = train_entry.main(small + ["--load_ckpt", str(path), "--log_dir", str(work / f"cpu_{label}")],
+                                       device="cpu")
+        cpu_runs[label] = {"state": trainer.model.state_dict(),
+                           "losses": [h["scalars"] for h in trainer.history if h["mode"] in ("train", "val")],
+                           "adam": [t for s in trainer.optimizer.state.values() for t in (s["exp_avg"], s["exp_avg_sq"])]}
+    x, y = cpu_runs["msgpack"], cpu_runs["pth"]
+    cpu_differ = [k for k in x["state"] if not torch.equal(x["state"][k], y["state"][k])]
+    if cpu_differ or x["losses"] != y["losses"] or len(x["adam"]) != len(y["adam"]) or \
+            not all(map(torch.equal, x["adam"], y["adam"])):
+        raise SystemExit(f"on the CPU the steps resumed from the two folders differ: {cpu_differ[:5]}")
+    print(f"  the same two resumed steps on the CPU (96x320, where the step repeats bitwise): weights and Adam state "
+          f"bit-equal ({len(x['state'])} state entries, {len(x['adam'])} Adam moments), losses equal")
+    return {"files": files, "bytes": size, "write_s": write_s, "eval_s": eval_s, "bit_equal": not moved,
+            "repeatable": not repeat, "state_entries_differing": len(moved), "repeat_entries_differing": len(repeat)}
+
+
+# Phase 12c: update norms, card against CPU. Adam's first step moves each
+# weight by about lr * sign(g), so a module's norm counts its weights; it
+# moves only where the two devices' gradients differ in sign, near zeros of
+# the gradient (found 2e-5 between the JAX package and the port on the CPU).
+UPDATE_NORM_TOL = 1e-3
+
+
+def run_grad_compare(smi, work):
+    """12c: ``bench/grad_compare.py`` at its defaults on the card and on the
+    CPU (drop-path off and the RANSAC draws shared, as phase 5 runs its
+    step), then ``--diff``."""
+    import torch
+
+    from dynamo_depth_torch.bench import grad_compare
+    from dynamo_depth_torch.models.layers import DropPath
+    from dynamo_depth_torch.ops import ground_plane
+
+    def no_drop_path(trainer):
+        for m in trainer.model.modules():
+            if isinstance(m, DropPath):
+                m.rate = 0.0
+
+    recs, wall = {}, {}
+    draw = ground_plane.draw_sample_idx
+    for device in ("cuda", "cpu"):
+        args = grad_compare.build_parser().parse_args(["--device", device, "--out", str(work / f"gc_{device}.json")])
+        idx_gen = torch.Generator().manual_seed(1)
+        ground_plane.draw_sample_idx = lambda b, t, n, g, device: torch.randint(0, n, (b, t), generator=idx_gen).to(device)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                recs[device] = grad_compare.run(args, setup=no_drop_path)
+        finally:
+            ground_plane.draw_sample_idx = draw
+        wall[device] = time.perf_counter() - t0
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        grad_compare.diff([str(work / "gc_cpu.json"), str(work / "gc_cuda.json")])
+    print(f"12c: python -m dynamo_depth_torch.bench.grad_compare at its defaults (fine_tune, 96x320, batch 6, "
+          f"drop-path off, shared RANSAC draws) on the card ({wall['cuda']:.1f} s) and the CPU ({wall['cpu']:.1f} s), "
+          f"then --diff:")
+    print("  " + table.getvalue().rstrip().replace("\n", "\n  "))
+    card, cpu = recs["cuda"], recs["cpu"]
+    rel = {k: abs(card["losses"][k] - cpu["losses"][k]) / max(abs(cpu["losses"][k]), 1e-6) for k in cpu["losses"]}
+    worst = max((k for k in rel if k not in RANSAC_TERMS), key=rel.get)
+    agree(f"grad_compare loss terms outside RANSAC (worst {worst}; d_ground {rel['loss_term/d_ground']:.2e}, "
+          f"recorded)", rel[worst], 1e-4)
+    norm_rel = {k: abs(card["update_norms"][k] - v) / v for k, v in cpu["update_norms"].items()}
+    agree(f"grad_compare update norms (worst {max(norm_rel, key=norm_rel.get)})", max(norm_rel.values()),
+          UPDATE_NORM_TOL)
+    if card["platform"] != "cuda" or card.keys() != {"platform", "phase", "losses", "update_norms"}:
+        raise SystemExit(f"grad_compare wrote {sorted(card)} on {card['platform']}")
+    return {"loss_rel": rel, "norm_rel": norm_rel, "wall_s": wall}
+
+
+def run_profile_tool(smi, work, folder):
+    """12d: a ``--profile`` trace of one fine_tune epoch of 2 steps from
+    12a's last folder, read by ``bench/profile_top_ops.py``."""
+    from dynamo_depth_torch import train as train_entry
+    from dynamo_depth_torch.bench import profile_top_ops
+
+    root = Path(__file__).resolve().parent
+    steps = 2
+    argv = ["-d", "kitti", "-n", "profiled", "--data_path", str(root / "assets" / "tiny_kitti") + "/", "--split",
+            "tiny_kitti", "--height", str(H), "--width", str(W), "--batch_size", str(B), "--weights_init", "scratch",
+            "--epoch_schedules", "0", "0", "0", "1", "--epoch-size", str(steps), "--log_frequency", "1",
+            "--no_train_vis", "--print_opt", "", "--load_ckpt", str(folder), "--log_dir", str(work / "logs"),
+            "--profile"]
+    trainer = train_entry.main(argv)
+    vals = sum(h["mode"] == "val" for h in trainer.history)
+    trace = work / "logs" / "profiled" / "traces" / "fine_tune"
+    print(f"12d: python -m dynamo_depth_torch.bench.profile_top_ops {trace} 8 ({steps} fine_tune steps and {vals} "
+          f"validation batches, traced on the card):")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        summary = profile_top_ops.main([str(trace), "8"])
+    for flag in ("--by-op", "--copies"):
+        with contextlib.redirect_stdout(log):
+            profile_top_ops.main([str(trace), "8", flag])
+    print("  " + log.getvalue().rstrip().replace("\n", "\n  "))
+    # The steps launch each kernel 6 times; each validation batch's forward
+    # launches K1 and K3 6 times more.
+    per = launches_per_step(trainer.cfg)
+    expected = {"warp_fwd": per["warp_fwd"] * (steps + vals), "warp_bwd": per["warp_bwd"] * steps,
+                "photometric_fwd": per["photometric_fwd"] * (steps + vals),
+                "photometric_bwd": per["photometric_bwd"] * steps}
+    got = {k: summary["categories"].get(k, [0.0, 0])[1] for k in expected}
+    if got != expected:
+        raise SystemExit(f"profile_top_ops counted {got} launches, expected {expected}")
+    print(f"  the four port kernels in the tool's table: {got} launches (6 per step each, and 6 of K1 and K3 per "
+          f"validation batch); {summary['total_ms']:.1f} ms of device time in the trace, on {smi}")
+    return {"launches": got, "total_ms": summary["total_ms"],
+            "ms": {k: summary["categories"][k][0] for k in expected}}
+
+
+def run_phase12(smi, phase7, phase8_tables):
+    """Phase 12: the training visualisation (12a), a JAX-layout checkpoint
+    (12b), ``bench/grad_compare.py`` (12c) and ``bench/profile_top_ops.py``
+    (12d) on the card."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    vis = run_vis(smi, work)
+    jax_folder = run_jax_folder(smi, work, Path(phase7["folder"]), phase8_tables["kitti"])
+    grad = run_grad_compare(smi, work)
+    prof = run_profile_tool(smi, work, vis["folder"])
+    wall = time.perf_counter() - t0
+    print(f"phase 12: {wall:.1f} s")
+    return {"vis": vis, "jax_folder": jax_folder, "grad_compare": grad, "profile_tool": prof, "wall_s": wall}
+
+
 def main():
     import torch
 
@@ -1246,6 +1650,10 @@ def main():
     phase11 = run_ddp(smi, phase7, phase8["tables"])
     gloo_main = phase11["gloo2"][0]["main_path"]
 
+    # ---- 12. the training visualisation, JAX folders and the bench tools ---
+    print("phase 12:")
+    phase12 = run_phase12(smi, phase7, phase8["tables"])
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -1275,6 +1683,9 @@ def main():
             "launches_per_rank_step_gloo2": gloo_main["launches_per_step"][0][k],
             "ms_cold": cold[(k, "uniform" if warp_k else None)][0],
             "library_ms_cold": cold[(k, "uniform" if warp_k else None)][1],
+            "launches_per_log_vis": phase12["vis"]["launches_per_log_vis"][k],
+            "launches_vis_curriculum": phase12["vis"]["launches"][k],
+            "launches_profile_tool": phase12["profile_tool"]["launches"][k],
         }
         if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
             ms_e, plain_e, lib_e = timings[(k, "ego")]
@@ -1295,7 +1706,13 @@ def main():
                "gloo2_shared_card": {"step_ms": gloo_main["step_ms"],
                                      "allreduce_bytes_per_step": gloo_main["allreduce_bytes_per_step"],
                                      "card_vs_cpu_rel": phase11["gloo2"][0]["card_vs_cpu"]["rel"]},
-               "ddp_wall_s": phase11["wall_s"]}
+               "ddp_wall_s": phase11["wall_s"],
+               "phase12": {"log_vis_ms": phase12["vis"]["vis_ms"], "step_ms": phase12["vis"]["step_ms"],
+                           "vis_grids_ms_one_batch": phase12["vis"]["grid_ms_one_batch"],
+                           "jax_folder": phase12["jax_folder"],
+                           "grad_compare": {"loss_rel": phase12["grad_compare"]["loss_rel"],
+                                            "norm_rel": phase12["grad_compare"]["norm_rel"]},
+                           "profile_tool_ms": phase12["profile_tool"]["ms"], "wall_s": phase12["wall_s"]}}
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "steps": summary,
                       "card": smi}))

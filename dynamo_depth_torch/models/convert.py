@@ -2,7 +2,8 @@
 
 :func:`load_jax_variables` takes the flax ``params`` and ``batch_stats``
 trees of a ``dynamo_depth_tpu`` ``DynamoModel`` as numpy arrays and copies
-them into a port :class:`~dynamo_depth_torch.models.model.DynamoModel`. The
+them into a port :class:`~dynamo_depth_torch.models.model.DynamoModel`;
+:func:`module_to_jax_variables` gives one port module's trees back. The
 port's modules carry the reference's torch state-dict keys, so this is the
 inverse of the JAX package's torch -> flax converter
 (``dynamo_depth_tpu/models/convert.py:86-226``), kept here as the port's own
@@ -134,6 +135,47 @@ def _get(tree: Dict, path: Tuple[str, ...]):
     return tree
 
 
+def _set(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def flax_entries(module: nn.Module, module_name: str, scales=(0, 1, 2), depth_model: str = "litemono"):
+    """(state-dict key, tensor, collection, flax path, axes) of each entry of
+    ``module`` that flax keeps: ``axes`` take the flax array to torch's
+    layout (None: the same layout). Raises if an entry has no flax
+    counterpart. The dilated-conv blocks' ``norm`` (unused in forward,
+    absent in flax) is left out."""
+    modules = dict(module.named_modules())
+    for key, tensor in module.state_dict().items():
+        prefix, name = key.rsplit(".", 1)
+        parent = modules.get(prefix.rsplit(".", 1)[0]) if "." in prefix else None
+        if isinstance(parent, DilatedConv) and prefix.endswith(".norm"):
+            continue
+        spec = _leaf_spec(modules[prefix], name)
+        if spec is None:
+            continue
+        collection, leaf, axes = spec
+        path = flax_module_path(module_name, prefix, scales, depth_model)
+        if path is None:
+            raise KeyError(f"{module_name}.{key} has no flax counterpart")
+        yield key, tensor, collection, path + (leaf,), axes
+
+
+def flax_to_torch(value, axes) -> np.ndarray:
+    """A flax leaf as a float32 array in torch's layout."""
+    value = np.array(value, np.float32)
+    return np.ascontiguousarray(value if axes is None else np.transpose(value, axes))
+
+
+def torch_to_flax(tensor: torch.Tensor, axes) -> np.ndarray:
+    """A torch tensor as a float32 array in flax's layout (the inverse of
+    :func:`flax_to_torch`)."""
+    value = tensor.detach().cpu().float().numpy()
+    return np.ascontiguousarray(value if axes is None else np.transpose(value, np.argsort(axes)))
+
+
 def load_module_variables(module: nn.Module, module_name: str, params: Dict, batch_stats: Dict,
                           scales=(0, 1, 2), depth_model: str = "litemono") -> nn.Module:
     """Copy one module's flax ``params`` / ``batch_stats`` subtrees into the
@@ -143,27 +185,25 @@ def load_module_variables(module: nn.Module, module_name: str, params: Dict, bat
     dilated-conv blocks' ``norm`` (unused in forward, absent in flax) keeps
     its initial values."""
     trees = {"params": params, "batch_stats": batch_stats or {}}
-    modules = dict(module.named_modules())
     with torch.no_grad():
-        for key, tensor in module.state_dict().items():
-            prefix, name = key.rsplit(".", 1)
-            parent = modules.get(prefix.rsplit(".", 1)[0]) if "." in prefix else None
-            if isinstance(parent, DilatedConv) and prefix.endswith(".norm"):
-                continue
-            spec = _leaf_spec(modules[prefix], name)
-            if spec is None:
-                continue
-            collection, leaf, axes = spec
-            path = flax_module_path(module_name, prefix, scales, depth_model)
-            if path is None:
-                raise KeyError(f"{module_name}.{key} has no flax counterpart")
-            value = np.array(_get(trees[collection], path + (leaf,)), np.float32)
-            if axes is not None:
-                value = np.transpose(value, axes)
+        for key, tensor, collection, path, axes in flax_entries(module, module_name, scales, depth_model):
+            value = flax_to_torch(_get(trees[collection], path), axes)
             if tuple(value.shape) != tuple(tensor.shape):
-                raise ValueError(f"{module_name}.{key}: flax {path + (leaf,)} has shape {value.shape}, port {tuple(tensor.shape)}")
-            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+                raise ValueError(f"{module_name}.{key}: flax {path} has shape {value.shape}, port {tuple(tensor.shape)}")
+            tensor.copy_(torch.from_numpy(value))
     return module
+
+
+def module_to_jax_variables(module: nn.Module, module_name: str, depth_model: str = "litemono",
+                            scales=(0, 1, 2)) -> Tuple[Dict, Dict]:
+    """The flax ``(params, batch_stats)`` trees of one port module, as
+    float32 numpy (the inverse of :func:`load_module_variables`, exact:
+    only transposes); ``batch_stats`` is empty for a module without
+    BatchNorm."""
+    trees = {"params": {}, "batch_stats": {}}
+    for _, tensor, collection, path, axes in flax_entries(module, module_name, scales, depth_model):
+        _set(trees[collection], path, torch_to_flax(tensor, axes))
+    return trees["params"], trees["batch_stats"]
 
 
 def load_jax_variables(model: nn.Module, params: Dict, batch_stats: Dict, cfg) -> nn.Module:

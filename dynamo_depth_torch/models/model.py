@@ -53,6 +53,7 @@ class DynamoModel(nn.Module):
     def __init__(self, depth_model="litemono", encoder_num_layers=18, scales=(0, 1, 2), frame_ids=(0, -1, 1),
                  drop_path_rate=0.4):
         super().__init__()
+        self.depth_model = depth_model
         self.scales = tuple(scales)
         self.frame_ids = tuple(frame_ids)
         if depth_model == "monodepthv2":

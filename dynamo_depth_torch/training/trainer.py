@@ -10,8 +10,10 @@ whose frozen modules are applied with ``train=True``), a fresh Adam (eps
 schedule over the epoch loader's length, and the automask in ``disp_init``
 only. Each epoch draws its training files anew (Trainer.py:519-522), batches
 come from the host loader one ahead of the step, the colour pyramid is built
-on the device, and every ``log_frequency`` steps one validation batch is
-scored. Each epoch ends with a checkpoint folder in the reference's layout
+on the device, and every ``log_frequency`` steps the losses are logged, the
+step's batch is rendered as the 3x3 training visualisation (with wandb, as
+the JAX package's ``log_vis``) and one validation batch is scored. Each
+epoch ends with a checkpoint folder in the reference's layout
 (``training/checkpoint.py``).
 
 Under a torchrun launch (``parallel/dist.py``) the trainer is data-parallel
@@ -44,6 +46,7 @@ from dynamo_depth_torch.parallel import dist as pdist
 from dynamo_depth_torch.training import checkpoint as ckpt
 from dynamo_depth_torch.training.losses import compute_losses, view_synthesis
 from dynamo_depth_torch.utils.io import join_dir, sec_to_hm_str
+from dynamo_depth_torch.utils.vis import hsv_to_rgb, vis_motion
 
 PHASES = ("disp_init", "motion_init", "mask_init", "fine_tune")
 
@@ -126,6 +129,7 @@ class Trainer:
         # rank 0's those of one process.
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + (self.rank << 32))
         self._copy_stream = None
+        self._wandb = None  # the wandb module once setup_logging has started a run
         self.g_step = 0
         # One entry per log_time / log_scalars call: what a run reports.
         self.history: List[Dict] = []
@@ -373,6 +377,7 @@ class Trainer:
                         self.log_time(batch_idx, max(time.time() - t0, 1e-9), loss_val, data_t, comp_t)
                         data_t, comp_t = 0.0, 0.0
                         self.log_scalars("train", losses)
+                        self.log_vis("train", batch)
                         self.val()
                     comp_t += time.time() - t0
                     self.g_step += 1
@@ -485,9 +490,10 @@ class Trainer:
         ckpt.load_model(self.model, path, height=self.H, width=self.W, verbose=pdist.is_main_process())
 
     def load_optimizer(self, folder: str) -> None:
-        """Restore the folder's ``adam.pth`` into the current phase's Adam,
+        """Restore the folder's ``adam.pth`` (or a JAX folder's
+        ``adam.msgpack``) into the current phase's Adam,
         and with it the step count that drives the learning-rate schedule."""
-        if ckpt.load_opt_state(self.optimizer, folder):
+        if ckpt.load_opt_state(self.optimizer, folder, self.model):
             self.opt_steps = max((int(s["step"]) for s in self.optimizer.state.values()), default=0)
             self.print(f"restored optimizer state from {folder}")
 
@@ -503,22 +509,101 @@ class Trainer:
     # --------------------------------------------------------------- logging
 
     def setup_logging(self):
+        """Write ``opt.json`` and, unless ``--no_train_vis``, start a wandb
+        run (the JAX package's ``setup_logging``). Where wandb does not
+        import or its ``init`` fails the run trains on without it; on a
+        machine with no network wandb's own ``WANDB_MODE=offline`` keeps the
+        run on disk."""
         self.save_opt()
+        self._wandb = None
         if self.cfg.no_train_vis:
             return
         try:
-            import wandb  # noqa: F401
-        except ImportError:
-            return  # nothing to log to, as in the JAX package
-        raise NotImplementedError(
-            "training visualisation to wandb is not ported (it needs utils/vis.py): pass --no_train_vis")
+            import wandb
+
+            wandb.init(project="Dynamo", name=self.cfg.model_name, notes=self.cfg.comment, config=self.cfg.to_dict())
+            self._wandb = wandb
+        except Exception as e:  # any failure: train on without wandb, as the JAX package does
+            self.print(f"wandb not started ({e!r}): training without the visualisation")
 
     def log_scalars(self, mode: str, losses: Dict):
-        """Keep the 0-d entries of ``losses`` as floats in :attr:`history`."""
+        """Keep the 0-d entries of ``losses`` as floats in :attr:`history`,
+        and log them to wandb as ``{mode}_{key}`` at ``g_step``."""
         scalars = {k: v for k, v in losses.items() if torch.is_tensor(v) and v.ndim == 0}
         values = torch.stack([v.float() for v in scalars.values()]).tolist() if scalars else []
         self.history.append({"mode": mode, "phase": self.phase, "g_step": self.g_step,
                              "scalars": dict(zip(scalars, values))})
+        if self._wandb is None:
+            return
+        try:
+            self._wandb.log({f"{mode}_{k}": v for k, v in zip(scalars, values)}, step=self.g_step)
+        except Exception as e:  # a logging failure does not stop the run, as in the JAX package
+            self.print(f"wandb.log failed: {e!r}")
+
+    def vis_grids(self, batch: Dict) -> np.ndarray:
+        """The 3x3 training-visualisation grid of each sample of ``batch``
+        (device tensors, from :meth:`to_device`), (min(B, rows), 3H, 3W, 3)
+        float32 in [0, 1] on the host (Trainer.py:607-654; the JAX package's
+        ``vis_step`` and ``log_vis``): [rgb | reconstruction from frame
+        ``frame_ids[1]`` | L1 / max L1 over the batch], [disparity | motion
+        mask | depth / max depth], and the ego, independent and total flow
+        colour wheels, valued by their magnitude over the largest of the
+        three. The bare model runs in eval mode with no graph, with the
+        phase's flags; every module's mode is restored afterwards."""
+        cfg = self.cfg
+        inputs = self.process_inputs_device(batch)
+        modes = {m: m.training for m in self.model.modules()}
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask)
+                view_synthesis(cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
+                               automask=self.automask)
+        finally:
+            for m, training in modes.items():
+                m.training = training
+        f = cfg.frame_ids[1]
+
+        def host(t):  # NCHW on the device -> NHWC numpy
+            return t.permute(0, 2, 3, 1).float().cpu().numpy()
+
+        color, recon = host(inputs[("color", 0, 0)]), host(outputs[("color", f, 0)])
+        disp, mask = host(outputs[("disp", 0, 0)]), host(outputs[("motion_mask_r", f, 0)])
+        depth, flow = host(outputs[("depth", 0, 0)]), host(outputs[("independ_flow", f, 0)])
+        K, inv_K = inputs[("K", 0)].cpu().numpy(), inputs[("inv_K", 0)].cpu().numpy()
+        T = outputs[("cam_T_cam", 0, f)].float().cpu().numpy()
+
+        l1 = np.abs(color - recon).mean(-1, keepdims=True)
+        l1 = l1 / (l1.max() + 1e-6)
+        wheels = [vis_motion(depth, K, inv_K, motion_map=m, camTcam=t) for m, t in ((None, T), (flow, None), (flow, T))]
+        max_mag = max(mag for _, mag in wheels)
+        for hsv, mag in wheels:
+            hsv[..., 2] = np.clip(hsv[..., 2] * mag / max_mag, 0, 1)
+        ego, ind, tot = (1 - hsv_to_rgb(hsv) for hsv, _ in wheels)
+
+        def rep3(x):
+            return np.repeat(x, 3, axis=-1)
+
+        grids = []
+        for j in range(min(color.shape[0], self.B)):
+            rows = [np.concatenate([color[j], recon[j], rep3(l1[j])], axis=1),
+                    np.concatenate([rep3(disp[j]), rep3(mask[j]), rep3(depth[j] / depth[j].max())], axis=1),
+                    np.concatenate([ego[j], ind[j], tot[j]], axis=1)]
+            grids.append(np.clip(np.concatenate(rows, axis=0), 0, 1))
+        return np.stack(grids)
+
+    def log_vis(self, mode: str, batch: Dict):
+        """Log :meth:`vis_grids` of ``batch`` to wandb, one image
+        ``vis/{mode}_{j}`` per sample, at ``g_step``: rank 0 only, and
+        nothing where wandb is off. No collective: the other ranks do not
+        wait."""
+        if self._wandb is None or self.cfg.no_train_vis or not pdist.is_main_process():
+            return
+        package = {f"vis/{mode}_{j}": self._wandb.Image(grid) for j, grid in enumerate(self.vis_grids(batch))}
+        try:
+            self._wandb.log(package, step=self.g_step)
+        except Exception as e:  # a logging failure does not stop the run, as in the JAX package
+            self.print(f"wandb.log failed: {e!r}")
 
     def log_time(self, batch_idx, duration, loss, data_time, gpu_time):
         if not pdist.is_main_process():

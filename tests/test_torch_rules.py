@@ -19,7 +19,7 @@ from dynamo_depth_torch.training import trainer as trainer_mod
 
 PKG_DIR = Path(dynamo_depth_torch.__file__).parent
 ROOT = PKG_DIR.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dynamo_depth_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "dynamo_depth_tpu")
 
 
 def _all_modules():
@@ -103,14 +103,20 @@ def test_trainer_refuses_what_is_not_ported():
 
 
 def test_train_visualisation_is_refused_where_wandb_imports(monkeypatch, tmp_path):
+    # Nothing is refused any more: where wandb imports, setup_logging starts
+    # its run (the JAX package's semantics); --no_train_vis starts none.
     cfg = DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1, weights_init="scratch",
                        log_dir=str(tmp_path), print_opt=False)
     trainer = trainer_mod.Trainer(cfg, device="cpu")
-    monkeypatch.setitem(sys.modules, "wandb", object())
-    with pytest.raises(NotImplementedError, match="--no_train_vis"):
-        trainer.setup_logging()
+    inits = []
+    stub = type(sys)("wandb")
+    stub.init = lambda **kwargs: inits.append(kwargs)
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    trainer.setup_logging()
+    assert trainer._wandb is stub and inits[0]["project"] == "Dynamo"
     trainer.cfg.no_train_vis = True
     trainer.setup_logging()
+    assert trainer._wandb is None and len(inits) == 1
     assert (tmp_path / cfg.model_name / "models" / "opt.json").exists()
 
 
