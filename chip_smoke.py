@@ -108,7 +108,25 @@ Phases (any failure exits non-zero, nothing is caught):
    RANSAC within phase 5's 1e-4, update norms within ``UPDATE_NORM_TOL``;
    (d) ``bench/profile_top_ops.py`` on a ``--profile`` trace of 2
    ``fine_tune`` steps, its counts of the four kernels held to the steps'
-   and the validation batches' launches.
+   and the validation batches' launches;
+13. (a) the pretrained init: random backbone files in the layouts it reads
+   (a torchvision ResNet-18 state dict, ``fc.*`` included, and
+   ``{"model": ..., "args": argparse.Namespace}`` for Lite-Mono-8M) under
+   ``build/chip_smoke/phase13/ckpt``, and from that working directory the
+   curriculum from the entry point at 192x640, batch 3, LiteMono, the
+   default ``weights_init``, one step per phase: before the first step every
+   encoder tensor equals the files' (conv1 widened to the file's conv1 / n
+   and to ``widen_conv1`` from ``RandomState(seed)`` on the CPU), the
+   seconds the load took, launches per step as phase 7's; monodepthv2 from
+   the same folder, its ``depth_enc`` the file's; with an empty ``ckpt/``
+   the JAX package's two messages and one ``fine_tune`` step; (b)
+   ``eval.depth -l ckpt/K_Dynamo-Depth`` through a stub ``gdown`` on
+   ``PATH`` that zips phase 7's last folder: its table equal to phase 8's;
+   with no ``gdown`` on ``PATH``, the FileNotFoundError naming the Google
+   Drive id; (c) ``eval.motion_segmentation`` and ``eval.odometry`` on two
+   gloo ranks sharing the card, launched as in phase 11(b): counts and the
+   FP tally within 1e-3 of the pixels and the odometry record within 1e-4
+   relative of phase 8's one-process records, rank 0 alone writing.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -173,9 +191,10 @@ def launches_per_step(cfg, phase="fine_tune"):
             "photometric_bwd": n}
 
 
-def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", reload=True):
-    """Phases 7, 9 and 11a: the curriculum from the entry point, ``steps``
-    steps per phase, then (``reload``) its last folder loaded into a fresh
+def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", reload=True, weights_init="scratch"):
+    """Phases 7, 9, 11a and 13a: the curriculum from the entry point, ``steps``
+    steps per phase (``weights_init`` None: the flag left at its default,
+    which reads ``./ckpt``), then (``reload``) its last folder loaded into a fresh
     trainer and one more step from it. Returns {"launches": {kernel: n},
     "per_step": {kernel: {phase: n}}, "summary": {...}, "wrappers": the
     type of the training wrapper at each step}; raises SystemExit on any
@@ -201,7 +220,7 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
     argv = [
         "-d", "kitti", "-n", name, "--data_path", str(root / "assets" / "tiny_kitti") + "/",
         "--split", "tiny_kitti", "--depth_model", depth_model, "--height", str(H), "--width", str(W),
-        "--batch_size", str(B), "--weights_init", "scratch",
+        "--batch_size", str(B), *(["--weights_init", weights_init] if weights_init else []),
         "--epoch_schedules", "1", "1", "1", "1", "--epoch-size", str(steps), "--log_frequency", "1",
         "--no_train_vis", "--log_dir", str(log_dir),
         "--print_opt", "",  # a bool flag of the reference's: the empty string is False
@@ -334,14 +353,13 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
             "wrappers": wrappers}
 
 
-ODOM_SEG, ODOM_FRAMES = "val/segment-0000000001_eight_frames", 8
 _FLOAT = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
 
 
-def agree(what, err, tol):
-    print(f"  {what}: card vs CPU {err:.3e} (tolerance {tol:.0e}) {'ok' if err <= tol else 'FAILED'}")
+def agree(what, err, tol, sides="card vs CPU"):
+    print(f"  {what}: {sides} {err:.3e} (tolerance {tol:.0e}) {'ok' if err <= tol else 'FAILED'}")
     if not err <= tol:
-        raise SystemExit(f"{what}: the card's record disagrees with the CPU's")
+        raise SystemExit(f"{what}: the records disagree ({sides})")
 
 
 def _table(path):
@@ -361,28 +379,6 @@ def compare_depth_tables(key, card_path, cpu_path):
           max(float(np.abs(np.subtract(rows_c[r], rows_p[r])).max()) for r in rows_c), 1e-3 + 1e-9)
 
 
-def build_odometry_segment(data_root):
-    """An 8-frame Waymo segment: the vendored fixture's 3 images cycled, its
-    intrinsics, and 8 ground-truth poses from a seeded random drive (the
-    fixture's own 3 frames leave one non-edge frame and no 5-frame track)."""
-    src = Path(__file__).resolve().parent / "assets" / "tiny_waymo" / "val" / "segment-0000000000_tiny_fixture" / "FRONT" / "rgb"
-    dst = data_root / ODOM_SEG / "FRONT"
-    (dst / "rgb" / "downsample").mkdir(parents=True)
-    for i in range(ODOM_FRAMES):
-        shutil.copy(src / "downsample" / f"{i % 3:06}.jpg", dst / "rgb" / "downsample" / f"{i:06}.jpg")
-    shutil.copy(src / "cam.json", dst / "rgb" / "cam.json")
-    rng = np.random.RandomState(8)
-    pose, poses = np.eye(4), []
-    for _ in range(ODOM_FRAMES):
-        step = np.eye(4)
-        a = rng.uniform(-0.02, 0.02)
-        step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-        step[:3, 3] = [rng.uniform(-0.1, 0.1), rng.uniform(-0.05, 0.05), rng.uniform(0.5, 1.5)]
-        pose = pose @ step
-        poses.append(pose.reshape(-1))
-    np.savetxt(dst / "odometry.txt", np.array(poses))
-
-
 def run_eval(smi, folder, work):
     """Phase 8. Every eval CLI and the quick demo from ``folder`` on the card,
     then on the CPU, with the card's records held against the CPU's. Returns
@@ -390,6 +386,7 @@ def run_eval(smi, folder, work):
     import torch
 
     from dynamo_depth_torch import quick_demo
+    from dynamo_depth_torch.bench.two_process_drive import ODOM_FRAMES, ODOM_SEG, build_odometry_segment
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.eval import depth, motion_segmentation, odometry, visualize
     from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -509,6 +506,9 @@ def run_eval(smi, folder, work):
               f"{predict_ms[key]['wall_ms']:.3f} ms wall with the copy in (median of 5 after 2 warm-ups) on {smi}")
     return {"launches": launches, "peak_bytes": peak, "card_s": card["seconds"], "cpu_s": cpu["seconds"],
             "tables": {"kitti": card["depth_kitti"]["path"], "waymo": card["depth_waymo"]["path"]},
+            "mot_seg": {"npz": mc["npz"], "fp_tally": {str(k): int(v) for k, v in mc["fp_tally"].items()},
+                        **{k: mc[k].tolist() for k in ("tp", "fp", "fn")}},
+            "odometry_npy": card["odometry"]["npy"],
             "predict": predict_ms, "plots_written": mc["pdfs"], "plots_missing": mc["missing"],
             "odometry_ate": card["odometry"]["ates"]}
 
@@ -818,6 +818,12 @@ def ddp_worker(worker, out):
         result = {"main_path": gloo_main_path(rank), "card_vs_cpu": gloo_card_vs_cpu(rank),
                   "eval": gloo_eval(rank, out)}
         (out / f"gloo2_rank{rank}.json").write_text(json.dumps(result))
+        torch.distributed.destroy_process_group()
+        return 0
+    if worker == "gloo_evals":
+        torch.set_num_threads(4)
+        pdist.init_distributed(device="cuda:0", backend="gloo")  # NCCL refuses two ranks on one card
+        (out / f"gloo_evals_rank{rank}.json").write_text(json.dumps(gloo_eval_records(rank, out)))
         torch.distributed.destroy_process_group()
         return 0
     raise SystemExit(f"unknown worker {worker}")
@@ -1361,6 +1367,283 @@ def run_phase12(smi, phase7, phase8_tables):
     return {"vis": vis, "jax_folder": jax_folder, "grad_compare": grad, "profile_tool": prof, "wall_s": wall}
 
 
+def write_backbone_files(ckpt_dir, seed=13):
+    """Random ImageNet backbone files in the layouts the pretrained init
+    reads: ``resnet18-f37072fd.pth``, a torchvision ResNet-18 state dict
+    (``fc.*`` included), and ``lite-mono-8m-pretrain.pth``, ``{"model": the
+    Lite-Mono-8M classifier's state dict with its final ``norm.*`` and
+    ``head.*``, "args": an argparse.Namespace}``. Returns the two state
+    dicts."""
+    import argparse
+
+    import torch
+
+    from dynamo_depth_torch.models.litemono import LiteMono
+    from dynamo_depth_torch.models.pretrained import BACKBONE_FILES
+    from dynamo_depth_torch.models.resnet import ResnetEncoder
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def randomised(module):
+        out = {}
+        for k, v in module.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                out[k] = torch.tensor(7, dtype=torch.int64)
+            elif k.endswith("running_var"):
+                out[k] = torch.rand(v.shape, generator=gen) + 0.5
+            else:
+                out[k] = torch.randn(v.shape, generator=gen) * 0.05
+        return out
+
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    resnet = randomised(ResnetEncoder(18, 1).encoder)
+    resnet.update({"fc.weight": torch.randn(1000, 512, generator=gen), "fc.bias": torch.randn(1000, generator=gen)})
+    torch.save(resnet, ckpt_dir / BACKBONE_FILES["resnet18"])
+    lite = randomised(LiteMono())
+    lite.update({"norm.weight": torch.randn(224, generator=gen), "norm.bias": torch.randn(224, generator=gen),
+                 "head.weight": torch.randn(1000, 224, generator=gen), "head.bias": torch.randn(1000, generator=gen)})
+    args = argparse.Namespace(model="lite-mono-8m", drop_path=0.1, input_size=224, lr=6e-3)
+    torch.save({"model": lite, "args": args}, ckpt_dir / BACKBONE_FILES["litemono"])
+    return resnet, lite
+
+
+def check_backbones(model, resnet, lite, seed, depth_model="litemono"):
+    """Every tensor of the encoders of ``model`` (on the card) against the
+    files': the ResNet trunk's, ``fc`` dropped, with conv1 widened for the
+    pose (2 frames) and motion (3 frames) encoders to the file's conv1 / n
+    in every 3-channel slice, and equal to ``widen_conv1`` recomputed on the
+    CPU from ``RandomState(seed)`` (pose first, then motion); LiteMono's
+    without the final ``norm.*``. Returns the number of tensors held."""
+    import torch
+
+    from dynamo_depth_torch.models.pretrained import widen_conv1
+
+    rng = np.random.RandomState(seed)
+    held = 0
+    widths = {"pose_enc": 2, "motion_enc": 3, "depth_enc": 1}
+    for module in ("pose_enc", "motion_enc", "depth_enc"):
+        if module == "depth_enc" and depth_model == "litemono":
+            ref = {k: v for k, v in lite.items() if not k.startswith("norm") and not k.startswith("head.")}
+        else:
+            ref = {f"encoder.{k}": v for k, v in resnet.items() if not k.startswith("fc.")}
+        got = getattr(model, module).state_dict()
+        n = widths[module]
+        for key, value in ref.items():
+            card = got[key].cpu()
+            if key == "encoder.conv1.weight" and n > 1:
+                slices = [card[:, 3 * i:3 * i + 3] for i in range(n)]
+                if not all(torch.equal(sl, value / n) for sl in slices):
+                    raise SystemExit(f"{module}: the widened conv1 is not the file's conv1 / {n} in each slice")
+                value = widen_conv1(value, n, rng)
+            if not torch.equal(card, value):
+                raise SystemExit(f"{module}.{key} is not the file's tensor")
+            held += 1
+    return held
+
+
+def run_pretrained(smi, work):
+    """13a: the curriculum from the entry point at the KITTI headline config
+    with the default ``weights_init`` ("pretrained") and backbone files under
+    ``./ckpt``; the encoders held to the files before the first step; then
+    monodepthv2 from the same folder, and a run with an empty ``ckpt/``."""
+    import torch
+
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.training import trainer as trainer_mod
+    from dynamo_depth_torch.training.synthetic import synthetic_batch
+
+    resnet, lite = write_backbone_files(work / "ckpt")
+    load_s, held = [], []
+    load, train = trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train
+
+    def timed_load(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return out
+
+    def checked_train(self):
+        held.append(check_backbones(self.model, resnet, lite, self.cfg.seed))
+        return train(self)
+
+    cwd = os.getcwd()
+    os.chdir(work)  # ./ckpt is looked up from the working directory
+    trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train = timed_load, checked_train
+    try:
+        curriculum = run_curriculum(smi, steps=1, name="pretrained", reload=False, weights_init=None)
+    finally:
+        trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train = load, train
+        os.chdir(cwd)
+    if len(load_s) != 1 or held != [held[0]] or not held[0]:
+        raise SystemExit(f"13a: {len(load_s)} backbone loads and {held} tensors held before the first step")
+    print(f"  13a: the backbones loaded in {load_s[0]:.3f} s (two files, "
+          f"{sum((work / 'ckpt' / f).stat().st_size for f in os.listdir(work / 'ckpt')) / 2**20:.1f} MiB); before "
+          f"the first step {held[0]} encoder tensors equal the files' (conv1 widened to the file's conv1 / 2 and / 3, "
+          f"and to RandomState({DynamoConfig().seed})'s widen_conv1 on the CPU); launches per step by phase "
+          + ", ".join(f"{k} {v}" for k, v in curriculum["per_step"].items()) + f", on {smi}")
+
+    os.chdir(work)
+    try:
+        md2 = trainer_mod.Trainer(DynamoConfig(dataset="kitti", depth_model="monodepthv2", height=H, width=W,
+                                               batch_size=B))
+        n_md2 = check_backbones(md2.model, resnet, lite, md2.cfg.seed, depth_model="monodepthv2")
+        del md2
+        (work / "empty").mkdir()
+        os.chdir(work / "empty")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cfg = DynamoConfig(dataset="kitti", height=H, width=W, batch_size=B)
+            bare = trainer_mod.Trainer(cfg, phase="fine_tune")
+    finally:
+        os.chdir(cwd)
+    print(printed.getvalue(), end="")
+    messages = ["|- pretrained resnet weights not found under ./ckpt - encoders keep random init",
+                "|- ./ckpt/lite-mono-8m-pretrain.pth not found - litemono depth encoder keeps random init"]
+    if [line for line in printed.getvalue().splitlines() if "random init" in line] != messages:
+        raise SystemExit(f"13a: with an empty ckpt/ the trainer printed {printed.getvalue()!r}")
+    batch = bare.to_device(synthetic_batch(cfg, B, H, W))
+    losses = bare.train_step(batch, torch.Generator(device=bare.device).manual_seed(0), 0)
+    if not all(math.isfinite(float(v)) for v in losses.values()):
+        raise SystemExit(f"13a: the fine_tune step from random init gave {losses}")
+    print(f"  13a: monodepthv2 from the same ckpt/: {n_md2} encoder tensors equal the files'; with an empty ckpt/ "
+          f"the JAX package's two messages, and a fine_tune step from random init, loss {float(losses['loss']):.5f}")
+    del bare
+    torch.cuda.empty_cache()
+    return {"load_s": load_s[0], "held": held[0], "held_monodepthv2": n_md2, "launches": curriculum["launches"],
+            "per_step": curriculum["per_step"], "summary": curriculum["summary"]}
+
+
+def run_zoo(smi, work, folder, phase8_table):
+    """13b: ``eval.depth -l ckpt/K_Dynamo-Depth`` through a stub ``gdown`` on
+    ``PATH`` that zips the module files of ``folder``, as a released folder
+    holds them: its table equals phase 8's of ``folder``; then with no
+    ``gdown`` on ``PATH``, the FileNotFoundError naming the id."""
+    from dynamo_depth_torch.eval import depth
+    from dynamo_depth_torch.models.model import MODULE_NAMES
+    from dynamo_depth_torch.models.pretrained import MODEL_ZOO
+
+    name = "ckpt/K_Dynamo-Depth"
+    modules = sorted(f"{m}.pth" for m in MODULE_NAMES)
+    stub_dir = work / "bin"
+    stub_dir.mkdir(parents=True)
+    stub = stub_dir / "gdown"
+    stub.write_text(f"#!{sys.executable}\n"
+                    "import pathlib, sys, zipfile\n"
+                    f"folder = pathlib.Path({str(folder)!r})\n"
+                    "with zipfile.ZipFile('K_Dynamo-Depth.zip', 'w') as z:\n"
+                    f"    for f in {modules!r}:\n"
+                    "        z.write(folder / f, 'K_Dynamo-Depth/' + f)\n"
+                    "open('gdown_args.txt', 'w').write(' '.join(sys.argv[1:]))\n")
+    stub.chmod(0o755)
+    argv = ["-d", "kitti", "--data_path", f"{Path(__file__).resolve().parent / 'assets' / 'tiny_kitti'}/", "--split",
+            "tiny_kitti", "-l", name, "--height", str(H), "--width", str(W), "-b", str(B), "--num_workers", "2",
+            "--eval_dir", str(work / "eval")]
+    cwd, path = os.getcwd(), os.environ["PATH"]
+    for leg in ("stub", "none"):
+        (work / leg).mkdir()
+        os.chdir(work / leg)
+        os.environ["PATH"] = str(stub_dir) + os.pathsep + path if leg == "stub" else str(work / "empty_bin")
+        try:
+            if leg == "stub":
+                t0 = time.perf_counter()
+                table = depth.main(argv)["path"]
+                seconds = time.perf_counter() - t0
+                fetched = sorted(p.name for p in (work / leg / name).iterdir())
+                gdown_args = (work / leg / "gdown_args.txt").read_text()
+            else:
+                try:
+                    depth.main(argv)
+                    raise SystemExit("13b: with no gdown on PATH eval.depth -l ckpt/K_Dynamo-Depth raised nothing")
+                except FileNotFoundError as e:
+                    error = str(e)
+        finally:
+            os.chdir(cwd)
+            os.environ["PATH"] = path
+    if gdown_args != MODEL_ZOO[name] or fetched != modules:
+        raise SystemExit(f"13b: gdown was called with {gdown_args!r} and fetched {fetched}")
+    got, ref = Path(table).read_text().splitlines(), Path(phase8_table).read_text().splitlines()
+    model_line = [i for i, line in enumerate(ref) if line.startswith("====== Model Path")]
+    if len(got) != len(ref) or any(a != b for i, (a, b) in enumerate(zip(got, ref)) if i not in model_line):
+        raise SystemExit(f"13b: the table of {name} differs from phase 8's:\n" + "\n".join(got))
+    if MODEL_ZOO[name] not in error or name not in error:
+        raise SystemExit(f"13b: the error does not name the id and the folder: {error}")
+    print(f"  13b: eval.depth -l {name} through a stub gdown ({gdown_args}): {len(fetched)} files unzipped into "
+          f"{name}, its table equal to phase 8's (all lines but the model path), {seconds:.1f} s on {smi}; with no "
+          f"gdown on PATH: FileNotFoundError({error[:90]}...)")
+    return {"seconds": seconds, "files": len(fetched)}
+
+
+def gloo_eval_records(rank, out):
+    """13c: eval.motion_segmentation on tiny_waymo and eval.odometry on the
+    8-frame segment from phase 7's fine_tune_00, with the two ranks on the
+    card, as phase 8 ran them on one process; each rank under its own eval
+    folder."""
+    from dynamo_depth_torch.eval import motion_segmentation, odometry
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke"
+    folder = work / "logs" / "curriculum" / "models" / "fine_tune_00"
+
+    def argv(data, split):
+        return ["-d", "waymo", "--data_path", f"{data}/", "--split", split, "-l", str(folder), "--height", str(H),
+                "--width", str(W), "-b", str(B), "--num_workers", "2", "--eval_dir", str(out / f"eval13_rank{rank}")]
+
+    mot = motion_segmentation.main(argv(root / "assets" / "tiny_waymo", "tiny_waymo"), device="cuda:0")
+    odom = odometry.main(argv(work / "data", "odom"), device="cuda:0")
+    return {"mot_seg": {"npz": mot["npz"], "fp_tally": {str(k): int(v) for k, v in mot["fp_tally"].items()},
+                        **{k: mot[k].tolist() for k in ("tp", "fp", "fn")}},
+            "odometry": {"npy": odom["npy"], "txt": odom["txt"]}}
+
+
+def run_gloo_evals(smi, phase8):
+    """13c: the two CLIs on two gloo ranks sharing the card, against phase
+    8's one-process records within phase 8's tolerances."""
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase13_gloo"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    wall = launch(2, "gloo_evals", out)
+    ranks = [json.loads((out / f"gloo_evals_rank{r}.json").read_text()) for r in (0, 1)]
+    one, two = phase8["mot_seg"], ranks[0]["mot_seg"]
+    pixels = 1280 * 1920  # the one non-edge frame at Waymo's full resolution
+    if one["fp_tally"].keys() != two["fp_tally"].keys() or any(ranks[1]["mot_seg"][k] != two[k] for k in
+                                                              ("tp", "fp", "fn", "fp_tally")):
+        raise SystemExit(f"13c: FP tally categories {two['fp_tally']} vs {one['fp_tally']}, "
+                         "or the ranks' counts differ")
+    sides = "2 ranks vs phase 8's one process"
+    agree("13c mot_seg tp/fp/fn (fraction of the pixels)",
+          max(float(np.abs(np.subtract(one[k], two[k])).max()) for k in ("tp", "fp", "fn")) / pixels, 1e-3, sides)
+    agree("13c mot_seg FP tally (fraction of the pixels)",
+          max(abs(one["fp_tally"][k] - two["fp_tally"][k]) for k in one["fp_tally"]) / pixels, 1e-3, sides)
+    a, b = np.load(phase8["odometry_npy"]), np.load(ranks[0]["odometry"]["npy"])
+    if a.shape != b.shape or a.size == 0:
+        raise SystemExit(f"13c: odometry records of shape {a.shape} and {b.shape}")
+    agree(f"13c odometry ATE and speed ({a.shape[0]} tracks; relative)", float((np.abs(a - b) / np.abs(a)).max()),
+          1e-4, sides)
+    written = [p for p in (ranks[1]["mot_seg"]["npz"], ranks[1]["odometry"]["npy"], ranks[1]["odometry"]["txt"])
+               if Path(p).exists()]
+    if written or not Path(two["npz"]).exists():
+        raise SystemExit(f"13c: rank 1 wrote {written}, or rank 0 wrote no npz")
+    print(f"  13c: rank 0 alone wrote the records; {wall:.1f} s of wall with the launch, on {smi}")
+    return {"wall_s": wall}
+
+
+def run_phase13(smi, phase7, phase8):
+    """Phase 13: the pretrained init (13a), a zoo name (13b) and the
+    motion-segmentation and odometry CLIs on two ranks (13c)."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase13"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    pretrained = run_pretrained(smi, work)
+    zoo = run_zoo(smi, work / "zoo", Path(phase7["folder"]), phase8["tables"]["kitti"])
+    gloo = run_gloo_evals(smi, phase8)
+    wall = time.perf_counter() - t0
+    print(f"phase 13: {wall:.1f} s")
+    return {"pretrained": pretrained, "zoo": zoo, "gloo_evals": gloo, "wall_s": wall}
+
+
 def main():
     import torch
 
@@ -1654,6 +1937,10 @@ def main():
     print("phase 12:")
     phase12 = run_phase12(smi, phase7, phase8["tables"])
 
+    # ---- 13. the pretrained init, a zoo name, two-rank motion and odometry eval
+    print("phase 13:")
+    phase13 = run_phase13(smi, phase7, phase8)
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -1686,6 +1973,8 @@ def main():
             "launches_per_log_vis": phase12["vis"]["launches_per_log_vis"][k],
             "launches_vis_curriculum": phase12["vis"]["launches"][k],
             "launches_profile_tool": phase12["profile_tool"]["launches"][k],
+            "launches_pretrained_curriculum": phase13["pretrained"]["launches"][k],
+            "launches_per_step_by_phase_pretrained": phase13["pretrained"]["per_step"][k],
         }
         if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
             ms_e, plain_e, lib_e = timings[(k, "ego")]
@@ -1712,7 +2001,11 @@ def main():
                            "jax_folder": phase12["jax_folder"],
                            "grad_compare": {"loss_rel": phase12["grad_compare"]["loss_rel"],
                                             "norm_rel": phase12["grad_compare"]["norm_rel"]},
-                           "profile_tool_ms": phase12["profile_tool"]["ms"], "wall_s": phase12["wall_s"]}}
+                           "profile_tool_ms": phase12["profile_tool"]["ms"], "wall_s": phase12["wall_s"]},
+               "phase13": {"backbone_load_s": phase13["pretrained"]["load_s"],
+                           "pretrained_curriculum": phase13["pretrained"]["summary"],
+                           "zoo_eval_depth_s": phase13["zoo"]["seconds"],
+                           "gloo_evals_wall_s": phase13["gloo_evals"]["wall_s"], "wall_s": phase13["wall_s"]}}
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "steps": summary,
                       "card": smi}))

@@ -11,17 +11,23 @@ runs the port's entry points in two topologies on ``assets/tiny_kitti``:
 Training goes through ``dynamo_depth_torch.train.main`` (the curriculum of
 ``--epoch_schedules``, by default ``disp_init`` alone; ``STEPS`` steps per
 phase, 32x64), with one validation
-batch scored on the initial weights before it; evaluation through
-``dynamo_depth_torch.eval.depth.main`` on the single run's last folder, on
-``tiny_kitti`` (Part 1) and ``tiny_waymo`` (Parts 1 and 2). Each rank writes
+batch scored on the initial weights before it; evaluation of the single
+run's last folder through ``dynamo_depth_torch.eval.depth.main`` on
+``tiny_kitti`` (Part 1) and ``tiny_waymo`` (Parts 1 and 2), through
+``eval.motion_segmentation.main`` on ``tiny_waymo`` and through
+``eval.odometry.main`` on an 8-frame segment made from the Waymo fixture
+(:func:`build_odometry_segment`), at a global batch of 2. Each rank writes
 under its own log and eval folders, so that what rank 1 writes shows. Checks:
 
 - the validation depth metrics of the initial weights agree to ``RTOL``
   (the same rows, reduced in another order) on both ranks;
 - both ranks hold bit-identical parameters and buffers after training
   (their ``state_fingerprint``);
-- rank 0 alone wrote the checkpoint folders and the eval tables;
-- the eval tables of the two topologies are equal.
+- rank 0 alone wrote the checkpoint folders and the eval records;
+- the eval tables of the two topologies are equal; the motion-segmentation
+  counts and false-positive tally agree to ``COUNT_TOL`` of the pixels, its
+  precision, recall and f1 to ``COUNT_TOL``; the odometry records to
+  ``ODOM_RTOL``.
 
 Training losses are not compared across topologies: each rank normalises
 with its own rows' BatchNorm statistics, so batch 2 on one process and
@@ -34,7 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import os.path as osp
+import shutil
 import socket
 import subprocess
 import sys
@@ -47,6 +53,12 @@ ASSETS = ROOT / "assets"
 KITTI_SEQ = "2011_09_26/2011_09_26_drive_0001_sync"
 WAYMO_SEG = "val/segment-0000000000_tiny_fixture"
 RTOL = 2e-4  # the JAX drive's: float32 sums of the same rows in another order
+# The eval CLIs' own tolerances between two runs of one checkpoint: a mask
+# value near a threshold moves pixels across it with round-off; poses and
+# ATE to float32's round-off.
+COUNT_TOL, ODOM_RTOL = 1e-3, 1e-4
+WAYMO_PIXELS = 1280 * 1920  # one frame at Waymo's full resolution
+ODOM_SEG, ODOM_FRAMES = "val/segment-0000000001_eight_frames", 8
 PHASE_FOLDERS = ("disp_init_00", "motion_init_00", "mask_init_00", "fine_tune_00")
 EVAL_DATASETS = ("kitti", "waymo")
 TIMEOUT_S = 900  # a worker past it is killed: a hung collective fails the drive
@@ -98,28 +110,67 @@ def run_train(args) -> None:
 
 
 def run_eval(args) -> None:
-    """``eval.depth`` of ``args.ckpt`` on each of :data:`EVAL_DATASETS`."""
+    """``eval.depth`` of ``args.ckpt`` on each of :data:`EVAL_DATASETS`,
+    ``eval.motion_segmentation`` on tiny_waymo and ``eval.odometry`` on the
+    8-frame segment; writes what the last two return on this rank."""
     import torch
 
-    from dynamo_depth_torch.eval import depth
+    from dynamo_depth_torch.eval import depth, motion_segmentation, odometry
 
     torch.set_num_threads(1)
+    out = Path(args.out)
+
+    def argv(dataset, data, split):
+        return ["-d", dataset, "--data_path", f"{data}/", "--split", split, "-l", args.ckpt, "--height", str(H),
+                "--width", str(W), "-b", "2", "--num_workers", "1",
+                "--eval_dir", str(out / f"eval_{args.name}_rank{_rank()}")]
+
     for dataset in EVAL_DATASETS:
-        depth.main(["-d", dataset, "--data_path", f"{ASSETS / f'tiny_{dataset}'}/", "--split", f"tiny_{dataset}",
-                    "-l", args.ckpt, "--height", str(H), "--width", str(W), "-b", "2",
-                    "--num_workers", "1", "--eval_dir", str(Path(args.out) / f"eval_{args.name}_rank{_rank()}")],
-                   device="cpu")
+        depth.main(argv(dataset, ASSETS / f"tiny_{dataset}", f"tiny_{dataset}"), device="cpu")
+    mot = motion_segmentation.main(argv("waymo", ASSETS / "tiny_waymo", "tiny_waymo"), device="cpu")
+    odom = odometry.main(argv("waymo", out / "data", "odom"), device="cpu")
+    (out / f"eval_{args.name}_rank{_rank()}.json").write_text(json.dumps({
+        "mot_seg": {"npz": mot["npz"], "fp_tally": {str(k): v for k, v in mot["fp_tally"].items()},
+                    **{k: mot[k].tolist() for k in ("tp", "fp", "fn")}},
+        "odometry": {"npy": odom["npy"], "txt": odom["txt"]}}))
+
+
+def build_odometry_segment(data_root: Path) -> Path:
+    """An 8-frame Waymo segment under ``data_root``: the vendored fixture's
+    3 images cycled, its intrinsics, and 8 ground-truth poses from a seeded
+    random drive (the fixture's own 3 frames leave one frame away from the
+    edges and no 5-frame track)."""
+    src = ASSETS / "tiny_waymo" / WAYMO_SEG / "FRONT" / "rgb"
+    dst = Path(data_root) / ODOM_SEG / "FRONT"
+    shutil.rmtree(dst, ignore_errors=True)
+    (dst / "rgb" / "downsample").mkdir(parents=True)
+    for i in range(ODOM_FRAMES):
+        shutil.copy(src / "downsample" / f"{i % 3:06}.jpg", dst / "rgb" / "downsample" / f"{i:06}.jpg")
+    shutil.copy(src / "cam.json", dst / "rgb" / "cam.json")
+    rng = np.random.RandomState(8)
+    pose, poses = np.eye(4), []
+    for _ in range(ODOM_FRAMES):
+        step = np.eye(4)
+        a = rng.uniform(-0.02, 0.02)
+        step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        step[:3, 3] = [rng.uniform(-0.1, 0.1), rng.uniform(-0.05, 0.05), rng.uniform(0.5, 1.5)]
+        pose = pose @ step
+        poses.append(pose.reshape(-1))
+    np.savetxt(dst / "odometry.txt", np.array(poses))
+    return Path(data_root)
 
 
 # ----------------------------------------------------------- orchestrator
 
 def write_splits(root: Path) -> Path:
     """Training and validation on tiny_kitti's frames 0 and 1 (both cameras);
-    eval on its three left frames and tiny_waymo's three frames."""
+    eval on its three left frames, tiny_waymo's three frames and the 8-frame
+    odometry segment."""
     splits = {
         "tiny": {w: [f"{KITTI_SEQ} {i} {s}" for i in (0, 1) for s in "lr"] for w in ("train", "val")},
         "tiny_kitti": {"test": [f"{KITTI_SEQ} {i} l" for i in range(3)]},
         "tiny_waymo": {w: [f"{WAYMO_SEG} {i}" for i in range(3)] for w in ("test", "test_mask")},
+        "odom": {"test": [f"{ODOM_SEG} {i}" for i in range(ODOM_FRAMES)]},
     }
     for name, files in splits.items():
         (root / name).mkdir(parents=True, exist_ok=True)
@@ -182,6 +233,33 @@ def table_path(out: Path, name: str, rank: int, dataset: str, ckpt: Path) -> Pat
     return out / f"eval_{name}_rank{rank}" / f"{model_name}_{dataset}" / "depth" / f"{ckpt_name}.txt"
 
 
+def compare_eval_records(out: Path) -> bool:
+    """The motion-segmentation and odometry records of the 2-process run
+    against the 1-process run's; rank 1 wrote neither."""
+    rec = {r: json.loads((out / f"eval_{r}.json").read_text()) for r in ("single_rank0", "multi_rank0", "multi_rank1")}
+    one, two = rec["single_rank0"]["mot_seg"], rec["multi_rank0"]["mot_seg"]
+    counts = max(float(np.abs(np.subtract(one[k], two[k])).max()) for k in ("tp", "fp", "fn")) / WAYMO_PIXELS
+    tally = (max(abs(one["fp_tally"][k] - two["fp_tally"][k]) for k in one["fp_tally"]) / WAYMO_PIXELS
+             if one["fp_tally"].keys() == two["fp_tally"].keys() else float("inf"))
+    z1, z2 = np.load(one["npz"]), np.load(two["npz"])
+    curve = max(float(np.abs(z1[k] - z2[k]).max()) for k in ("precision", "recall", "f1"))
+    same_ranks = all(rec["multi_rank1"]["mot_seg"][k] == two[k] for k in ("tp", "fp", "fn", "fp_tally"))
+    ok = _report(max(counts, tally, curve) <= COUNT_TOL and np.array_equal(z1["thrds"], z2["thrds"]) and same_ranks
+                 and not Path(rec["multi_rank1"]["mot_seg"]["npz"]).exists(),
+                 "eval.motion_segmentation on tiny_waymo: the 2-process records agree with the 1-process records, "
+                 "both ranks hold the summed counts, and rank 1 wrote none",
+                 f"tp/fp/fn {counts:.2e} and FP tally {tally:.2e} of the pixels, precision/recall/f1 {curve:.2e} "
+                 f"(tolerance {COUNT_TOL:.0e}); tally {two['fp_tally']}")
+    a, b = np.load(rec["single_rank0"]["odometry"]["npy"]), np.load(rec["multi_rank0"]["odometry"]["npy"])
+    rel = float((np.abs(a - b) / np.abs(a)).max()) if a.shape == b.shape and a.size else float("inf")
+    ok &= _report(rel <= ODOM_RTOL and not Path(rec["multi_rank1"]["odometry"]["npy"]).exists()
+                  and not Path(rec["multi_rank1"]["odometry"]["txt"]).exists(),
+                  "eval.odometry on the 8-frame segment: the 2-process ATE and speeds agree with the 1-process "
+                  "record, and rank 1 wrote none", f"{a.shape[0]} tracks, largest relative difference {rel:.2e} "
+                  f"(tolerance {ODOM_RTOL:.0e})")
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/two_proc")
@@ -202,6 +280,7 @@ def main(argv=None) -> int:
     args.out = str(out)
     out.mkdir(parents=True, exist_ok=True)
     write_splits(out / "splits")
+    build_odometry_segment(out / "data")
     schedule = ["--epoch_schedules", *map(str, args.epoch_schedules)]
     print(f"== training: 1 process at batch 2 and 2 processes at batch 1, {H}x{W}, "
           f"{STEPS} steps per phase of {args.epoch_schedules} ==", flush=True)
@@ -232,7 +311,8 @@ def main(argv=None) -> int:
                   f"rank 0: {folders}; rank 1's log folder exists: {(out / 'multi_rank1' / 'logs').exists()}")
 
     ckpt = out / "single_rank0" / "logs" / "drive" / "models" / trained[-1]
-    print(f"== eval.depth of {ckpt}: 1 process and 2 processes at a global batch of 2 ==", flush=True)
+    print(f"== eval.depth, eval.motion_segmentation and eval.odometry of {ckpt}: 1 process and 2 processes at a "
+          "global batch of 2 ==", flush=True)
     _run_both(args, "eval", extra=["--ckpt", str(ckpt)])
     for dataset in EVAL_DATASETS:
         single_t, multi_t = (table_path(out, n, 0, dataset, ckpt) for n in ("single", "multi"))
@@ -240,6 +320,7 @@ def main(argv=None) -> int:
         ok &= _report(same and not table_path(out, "multi", 1, dataset, ckpt).exists(),
                       f"eval.depth on tiny_{dataset}: the 2-process table equals the 1-process table, "
                       "and rank 1 wrote none", str(multi_t))
+    ok &= compare_eval_records(out)
     print("ALL PASS" if ok else "COMPARISONS FAILED", flush=True)
     return 0 if ok else 1
 

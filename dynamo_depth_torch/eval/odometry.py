@@ -7,6 +7,13 @@ batched), scale-aligned ATE of 5-frame tracks against ``odometry.txt``
 (SfMLearner protocol), aggregated to mean/std/min/median/max with the
 speeds. Writes ``record_<ckpt>-5.txt`` and ``.npy`` under
 ``<eval_dir>/<model>_<dataset>/odometry/``. waymo and nuscenes only.
+
+Under torchrun (``torchrun --nproc_per_node N -m dynamo_depth_torch.eval.odometry
+...``) the ``--batch_size`` global batch, rounded up to a multiple of N, is
+split into N contiguous row slices, one per process; the poses of the slices
+are gathered in rank order into the global batch on every process, and
+rank 0 alone prints and writes the records, the same records as one process
+writes.
 """
 
 import os.path as osp
@@ -17,6 +24,7 @@ from dynamo_depth_torch.config import parse_config
 from dynamo_depth_torch.data.loader import padded_eval_batches
 from dynamo_depth_torch.data.splits import read_split
 from dynamo_depth_torch.ops.geometry import transformation_from_parameters
+from dynamo_depth_torch.parallel import all_gather_rows, init_distributed, is_main_process, rank, world_size
 from dynamo_depth_torch.training.trainer import Trainer
 from dynamo_depth_torch.utils.io import get_filenames, get_model_ckpt_name, is_edge, join_dir, write_to_file
 
@@ -48,14 +56,17 @@ def eval_odom(cfg, trainer, segment, track_length):
     filenames = [f for f in get_filenames(segment, cfg) if not is_edge(f, cfg)]
     dataset = trainer.get_dataset(filenames, img_type=cfg.eval_img_type)
     N = len(filenames)
+    # The global batch, rounded up to whole rows per process.
+    eval_bs = -(-cfg.batch_size // world_size()) * world_size()
 
     # Batched pose prediction (the reference runs batch-size-1 frame by
-    # frame, odometry.py:44-68).
+    # frame, odometry.py:44-68): each process predicts its rows, and the
+    # global batch's poses are gathered in rank order.
     pred_poses = np.zeros((N, 4, 4), np.float64)
-    for batch, real_idxs in padded_eval_batches(dataset, cfg.batch_size, cfg.num_workers):
+    for batch, real_idxs in padded_eval_batches(dataset, eval_bs, cfg.num_workers, shard=(rank(), world_size())):
         outputs = trainer.predict(batch, bool_CmpFlow=False, bool_MotMask=False)
-        T = transformation_from_parameters(outputs[("axisangle", 0, 1)], outputs[("translation", 0, 1)],
-                                           invert=False).cpu().numpy()
+        T = all_gather_rows(transformation_from_parameters(outputs[("axisangle", 0, 1)], outputs[("translation", 0, 1)],
+                                                           invert=False)).cpu().numpy()
         for ii, ind in enumerate(real_idxs):
             pred_poses[ind] = T[ii]
 
@@ -92,13 +103,14 @@ def main(argv=None, device=None):
     records. Returns ``{"txt": path, "npy": path, "ates": [...],
     "speeds": [...]}``."""
     cfg = parse_config(argv)
+    init_distributed(device)
     cfg.frame_ids = [0, -1, 1]
     cfg.print_opt = False
     if cfg.dataset not in ("waymo", "nuscenes"):
         raise ValueError(f"{cfg.dataset} is not supported.")
 
     model_name, ckpt_name = get_model_ckpt_name(cfg.load_ckpt)
-    outdir = join_dir(cfg.eval_dir, f"{model_name}_{cfg.dataset}", "odometry")
+    outdir = osp.join(cfg.eval_dir, f"{model_name}_{cfg.dataset}", "odometry")
     txt_path = osp.join(outdir, f"record_{ckpt_name}-{TRACK_LENGTH}.txt")
     npy_path = osp.join(outdir, f"record_{ckpt_name}-{TRACK_LENGTH}.npy")
 
@@ -117,7 +129,8 @@ def main(argv=None, device=None):
             f"{segment:50s} Track={TRACK_LENGTH} ATE: {np.mean(ates):0.3f} ± {np.std(ates):0.3f},  "
             f"Speed: {np.mean(speeds):0.3f} ± {np.std(speeds):0.3f},  Len: {len(all_ates)}"
         )
-        print(output[-1], flush=True)
+        if is_main_process():
+            print(output[-1], flush=True)
 
     for title, values, end in ((f"ATE Trajectory error (Track={TRACK_LENGTH})", all_ates, "=="),
                                ("Speed", all_speeds, "--")):
@@ -131,10 +144,12 @@ def main(argv=None, device=None):
         output.append(end)
     output.append(f"len:    {len(all_speeds)}")
 
-    for s in output:
-        print(s)
-    write_to_file(output, txt_path)
-    np.save(npy_path, np.stack((np.array(all_ates), np.array(all_speeds))).transpose((1, 0)))
+    if is_main_process():
+        for s in output:
+            print(s)
+        join_dir(outdir)
+        write_to_file(output, txt_path)
+        np.save(npy_path, np.stack((np.array(all_ates), np.array(all_speeds))).transpose((1, 0)))
     return {"txt": txt_path, "npy": npy_path, "ates": all_ates, "speeds": all_speeds}
 
 

@@ -22,12 +22,13 @@ Forward wiring, as the JAX package has it:
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from dynamo_depth_torch.models.depth_decoder import DepthDecoder, LiteDepthDecoder
+from dynamo_depth_torch.models.init import init_like_jax
 from dynamo_depth_torch.models.litemono import LiteMono
 from dynamo_depth_torch.models.motion_decoder import MotionDecoder
 from dynamo_depth_torch.models.pose_decoder import PoseDecoder
@@ -50,8 +51,12 @@ def modules_for_networks(network_names: Sequence[str]) -> list:
 
 
 class DynamoModel(nn.Module):
+    """The seven modules, every parameter drawn from the distribution the
+    JAX package gives it (``models/init.py``), from ``generator`` (None:
+    torch's default generator)."""
+
     def __init__(self, depth_model="litemono", encoder_num_layers=18, scales=(0, 1, 2), frame_ids=(0, -1, 1),
-                 drop_path_rate=0.4):
+                 drop_path_rate=0.4, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.depth_model = depth_model
         self.scales = tuple(scales)
@@ -72,6 +77,9 @@ class DynamoModel(nn.Module):
         # (model.py:34-35; the motion encoder shares it).
         self.motion_dec = MotionDecoder(self.pose_enc.num_ch_enc, scales=self.scales, out_dim=3)
         self.motion_mask = MotionDecoder(self.pose_enc.num_ch_enc, scales=self.scales, out_dim=1)
+        uncovered = init_like_jax(self, generator)
+        if uncovered:
+            raise RuntimeError(f"no initialisation rule covers {uncovered}")
 
     def predict_depths(self, inputs, outputs, generator):
         frames = list(self.frame_ids)

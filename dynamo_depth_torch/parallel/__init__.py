@@ -1,8 +1,10 @@
 """Multi-process data parallelism (``parallel/dist.py``)."""
 
 from dynamo_depth_torch.parallel.dist import (  # noqa: F401
+    all_gather_rows,
     all_reduce_mean,
     all_reduce_sum,
+    any_rank,
     barrier,
     check_replicated,
     init_distributed,

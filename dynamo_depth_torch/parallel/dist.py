@@ -10,8 +10,9 @@ describes; without that environment the program is one process and every
 function here is a no-op. The trainer averages gradients through
 ``DistributedDataParallel`` and BatchNorm statistics and losses through
 :func:`all_reduce_mean`, which is the JAX package's ``pmean`` over its data
-axis. Only ``all_reduce`` and ``broadcast`` are used, the two collectives
-that gloo also runs on CUDA tensors; gloo has no ``ReduceOp.AVG``.
+axis. ``all_reduce`` and ``broadcast`` run on the tensors where they lie,
+since gloo also runs them on CUDA tensors (it has no ``ReduceOp.AVG``);
+:func:`all_gather_rows` gathers on the backend's own device.
 """
 
 from __future__ import annotations
@@ -125,6 +126,31 @@ def all_reduce_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     for t in tensors:
         t.div_(world)
     return tensors
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank (every rank gets the same
+    answer); ``flag`` itself for one process."""
+    if world_size() == 1:
+        return flag
+    count = torch.tensor([int(flag)], dtype=torch.int64, device=_comm_device())
+    dist.all_reduce(count)
+    return bool(count.item())
+
+
+def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``t`` (each of the same shape) concatenated along the
+    first axis in rank order, on every rank, on ``t``'s device; ``t`` itself
+    for one process. The gather runs on the backend's device: gloo has no
+    ``all_gather`` of CUDA tensors."""
+    world = world_size()
+    if world == 1:
+        return t
+    dev = _comm_device()
+    mine = t.detach().to(dev).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine)
+    return torch.cat(parts).to(t.device)
 
 
 def state_fingerprint(module: torch.nn.Module) -> torch.Tensor:

@@ -28,8 +28,11 @@ normalises with its own rows' batch statistics, as each JAX device does (no
 
 from __future__ import annotations
 
+import os
 import os.path as osp
+import subprocess
 import time
+import zipfile
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -40,6 +43,7 @@ from dynamo_depth_torch.data.loader import BatchLoader, make_dataset, sample_epo
 from dynamo_depth_torch.data.splits import read_split, split_exists
 from dynamo_depth_torch.models.litemono import DilatedConv
 from dynamo_depth_torch.models.model import MODULE_NAMES, DynamoModel, modules_for_networks
+from dynamo_depth_torch.models.pretrained import MODEL_ZOO, load_pretrained_backbones
 from dynamo_depth_torch.ops.metrics import DEPTH_METRIC_NAMES, depth_metrics
 from dynamo_depth_torch.ops.warp import resize_bicubic_aa
 from dynamo_depth_torch.parallel import dist as pdist
@@ -85,8 +89,9 @@ def _to_layout(key, t: torch.Tensor) -> torch.Tensor:
 class Trainer:
     """Model, the optimizer of the current phase, the step and the curriculum.
 
-    :param cfg: the run's config (``weights_init`` must be ``"scratch"``: the
-        imagenet backbones are not in the repository)
+    :param cfg: the run's config (``weights_init="pretrained"`` loads the
+        ImageNet backbones found under ``./ckpt``, unless ``load_ckpt`` is
+        given)
     :param device: ``"cuda"`` (default: the process's card) or ``"cpu"``
     :param phase: the phase :meth:`train_step` runs until :meth:`train` or
         :meth:`setup_phase` sets another
@@ -100,9 +105,6 @@ class Trainer:
                  steps_per_epoch: Optional[int] = None, drop_path_rate: float = 0.4):
         self.rank, self.world = pdist.rank(), pdist.world_size()
         cfg.validate(self.world)
-        if cfg.weights_init != "scratch" and not cfg.load_ckpt:
-            # A checkpoint replaces the initial weights, as in the JAX package.
-            raise NotImplementedError("only weights_init='scratch' is ported: the pretrained backbones are not in the repository")
         self.cfg = cfg
         self.device = resolve_device(device)
         # The JAX package runs float32 models at Precision.HIGHEST; on the
@@ -116,13 +118,19 @@ class Trainer:
         self.global_B = self.B * self.world
         self.log_path = osp.join(cfg.log_dir, cfg.model_name)
 
-        torch.manual_seed(cfg.seed)
+        # The JAX package's random init, drawn on the CPU from the seed: the
+        # same weights on the card and the CPU, and on every rank.
         self.model = DynamoModel(
             depth_model=cfg.depth_model, encoder_num_layers=cfg.encoder_num_layers,
             scales=tuple(cfg.scales), frame_ids=tuple(cfg.frame_ids), drop_path_rate=drop_path_rate,
+            generator=torch.Generator().manual_seed(cfg.seed),
         ).to(self.device)
         if cfg.load_ckpt:
             self.load_model()
+        elif cfg.weights_init == "pretrained":
+            # ImageNet backbones from ./ckpt where the files are present
+            # (resnet_encoder.py:46-49, model.py:25); random init where not.
+            load_pretrained_backbones(self.model, cfg, verbose=pdist.is_main_process(), seed=cfg.seed)
         pdist.check_replicated(self.model)
         # Drop-path masks, RANSAC hypotheses and the automask noise: distinct
         # draws on each rank (the JAX step's fold_in(rng, axis_index)), and
@@ -485,9 +493,46 @@ class Trainer:
     def load_model(self):
         path = osp.expanduser(self.cfg.load_ckpt)
         if not osp.isdir(path):
+            path = self._try_fetch_zoo_ckpt(path)
+        if not osp.isdir(path):
             raise FileNotFoundError(f"Cannot find checkpoint folder {path}")
         self.print(f"loading model from folder {path}")
         ckpt.load_model(self.model, path, height=self.H, width=self.W, verbose=pdist.is_main_process())
+
+    def _try_fetch_zoo_ckpt(self, path: str) -> str:
+        """Released-checkpoint download (model.py:210-222), as the JAX
+        package's: where ``path`` names a :data:`MODEL_ZOO` entry, one
+        ``gdown <id>`` and the unzip into ``ckpt/<name>``; otherwise a
+        ``FileNotFoundError`` that says what to fetch. Rank 0 fetches, the
+        other ranks wait for it and raise with it."""
+        if path not in MODEL_ZOO:
+            return path
+        gdrive_id = MODEL_ZOO[path]
+        if gdrive_id is None:
+            raise FileNotFoundError(
+                f"{path} is Waymo-licensed; request access per the reference README "
+                "and place the unzipped folder at that path.")
+        self.print(f"Missing model checkpoint {path}, attempting download.")
+        error = None
+        if pdist.is_main_process():
+            name = path.split("/")[1]
+            os.makedirs("./ckpt/", exist_ok=True)
+            try:
+                subprocess.run(["gdown", gdrive_id], check=True, timeout=600)
+                # The standard library's zipfile in place of the JAX package's
+                # `unzip -o`: the same files land.
+                with zipfile.ZipFile(f"{name}.zip") as archive:
+                    archive.extractall(".")
+                os.replace(name, f"ckpt/{name}")
+                os.remove(f"{name}.zip")
+            except Exception as e:  # any failure of the fetch: say what to fetch by hand
+                error = e
+        if pdist.any_rank(error is not None):
+            raise FileNotFoundError(
+                f"Could not auto-download {path} ({error or 'the download failed on rank 0'}). Download the "
+                f"reference checkpoint (gdrive id {gdrive_id}), unzip to {path}, and re-run; "
+                "the torch .pth files are read as they are.")
+        return path
 
     def load_optimizer(self, folder: str) -> None:
         """Restore the folder's ``adam.pth`` (or a JAX folder's

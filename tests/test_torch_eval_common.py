@@ -9,16 +9,14 @@ The JAX CLIs read ``sys.argv``; the port's take ``argv`` and run on the CPU
 here.
 """
 
-import os
 import os.path as osp
 import re
-import shutil
 import sys
 
-import numpy as np
 import pytest
 import torch
 
+from dynamo_depth_torch.bench import two_process_drive
 from dynamo_depth_torch.models.model import DynamoModel
 from dynamo_depth_torch.training import checkpoint as ckpt
 
@@ -28,8 +26,7 @@ ASSETS = osp.join(ROOT, "assets")
 KITTI_SEQ = "2011_09_26/2011_09_26_drive_0001_sync"
 WAYMO_SEG = "val/segment-0000000000_tiny_fixture"
 NUSC_SCENE = "scenes/scene-0001"
-ODOM_SEG = "val/segment-0000000001_eight_frames"
-ODOM_FRAMES = 8
+ODOM_SEG, ODOM_FRAMES = two_process_drive.ODOM_SEG, two_process_drive.ODOM_FRAMES
 
 
 def save_checkpoint(root, seed=0, depth_model="litemono"):
@@ -68,29 +65,9 @@ def write_splits(root):
 
 
 def build_odometry_segment(data_root):
-    """An 8-frame Waymo segment under ``data_root`` (a copy of the
-    fixture's images, cycled, and its intrinsics) with 8 ground-truth poses,
-    so that 5-frame tracks form: the fixture's 3 frames leave one non-edge
-    frame and no track."""
-    src = osp.join(ASSETS, "tiny_waymo", WAYMO_SEG, "FRONT", "rgb")
-    dst = osp.join(str(data_root), ODOM_SEG, "FRONT")
-    shutil.rmtree(dst, ignore_errors=True)
-    os.makedirs(osp.join(dst, "rgb", "downsample"))
-    for i in range(ODOM_FRAMES):
-        shutil.copy(osp.join(src, "downsample", f"{i % 3:06}.jpg"), osp.join(dst, "rgb", "downsample", f"{i:06}.jpg"))
-    shutil.copy(osp.join(src, "cam.json"), osp.join(dst, "rgb", "cam.json"))
-    rng = np.random.RandomState(8)
-    poses = []
-    pose = np.eye(4)
-    for _ in range(ODOM_FRAMES):
-        step = np.eye(4)
-        a = rng.uniform(-0.02, 0.02)
-        step[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-        step[:3, 3] = [rng.uniform(-0.1, 0.1), rng.uniform(-0.05, 0.05), rng.uniform(0.5, 1.5)]
-        pose = pose @ step
-        poses.append(pose.reshape(-1))
-    np.savetxt(osp.join(dst, "odometry.txt"), np.array(poses))
-    return str(data_root)
+    """An 8-frame Waymo segment under ``data_root`` with 8 ground-truth
+    poses, so that 5-frame tracks form (the two-process drive's)."""
+    return str(two_process_drive.build_odometry_segment(data_root))
 
 
 def cli_argv(dataset, data_path, split, folder, eval_dir, batch_size=2):

@@ -4,8 +4,9 @@ table held against the JAX CLI's table of the same checkpoint folder.
 
 The drive trains ``disp_init`` (2 steps, 32x64) as one process at batch 2
 and as two torchrun processes at batch 1 over gloo, and evaluates the
-one-process run's folder on tiny_kitti and tiny_waymo in both topologies; it
-must print ``ALL PASS``.
+one-process run's folder in both topologies: depth on tiny_kitti and
+tiny_waymo, motion segmentation on tiny_waymo and odometry on an 8-frame
+segment; it must print ``ALL PASS``.
 """
 
 import os
@@ -36,7 +37,7 @@ def test_the_two_process_drive_passes(drive_run):
     tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-40:])
     assert proc.returncode == 0, tail
     assert "ALL PASS" in proc.stdout and "FAIL " not in proc.stdout, tail
-    assert proc.stdout.count("PASS  ") == 7, tail
+    assert proc.stdout.count("PASS  ") == 9, tail
 
 
 def test_the_two_rank_table_matches_the_jax_clis(drive_run, monkeypatch):

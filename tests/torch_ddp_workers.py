@@ -183,3 +183,28 @@ def curriculum_rank(rank, world, port, out_dir, argv):
     (Path(out_dir) / f"curriculum_rank{rank}.pkl").write_bytes(pickle.dumps(out))
     dist.destroy_process_group()
 
+
+
+def pretrained_rank(rank, world, port, work_dir, out_dir):
+    """A ``Trainer`` with ``weights_init="pretrained"`` built in ``work_dir``
+    (whose ``ckpt/`` holds the backbone files; ``check_replicated`` runs in
+    its ``__init__``): what this rank printed, and its state fingerprint.
+    Also ``any_rank`` and ``all_gather_rows`` across the ranks."""
+    import contextlib
+    import io
+
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    _join(rank, world, port)
+    assert pdist.any_rank(rank == 1) and not pdist.any_rank(False)
+    rows = pdist.all_gather_rows(torch.full((2, 4, 4), float(rank)))
+    assert torch.equal(rows, torch.cat([torch.full((2, 4, 4), float(r)) for r in range(world)]))
+    os.chdir(work_dir)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        trainer = Trainer(DynamoConfig(dataset="kitti", height=32, width=64, batch_size=1), device="cpu")
+    out = Path(out_dir)
+    (out / f"pretrained_rank{rank}.txt").write_text(printed.getvalue())
+    (out / f"pretrained_rank{rank}.fp").write_text(str(pdist.state_fingerprint(trainer.model).tolist()))
+    dist.destroy_process_group()
