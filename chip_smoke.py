@@ -126,7 +126,18 @@ Phases (any failure exits non-zero, nothing is caught):
    Drive id; (c) ``eval.motion_segmentation`` and ``eval.odometry`` on two
    gloo ranks sharing the card, launched as in phase 11(b): counts and the
    FP tally within 1e-3 of the pixels and the odometry record within 1e-4
-   relative of phase 8's one-process records, rank 0 alone writing.
+   relative of phase 8's one-process records, rank 0 alone writing;
+14. (a) the throughput CLI as a user runs it, ``python -m
+   dynamo_depth_torch.bench.throughput`` (bfloat16 legs at batch 7, 8 and
+   3) and again with ``--compute_dtype float32 --batch_size 3``: its last
+   stdout line is the contract with a finite value > 0, every leg completed
+   and launched each kernel 6 times per step; each leg's examples/s, ms/step
+   and MFU beside phases 6 and 10's steps; (b) ``entry()`` on the card
+   against ``entry(device="cpu")`` on the card's weights, its three outputs
+   within ``ENTRY_RTOL``, no kernel launched, the card's forward timed; (c)
+   ``python -m dynamo_depth_torch.entry 1`` (NCCL) and ``... 2
+   --backend=gloo`` (two ranks sharing the card): both arms completed (a
+   budget skip fails here), finite losses, each arm's wall seconds.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -763,35 +774,14 @@ DDP_TIMEOUT_S = 600  # a phase-11 launch past it is killed: a hung collective fa
 
 
 def launch(nproc, worker, out):
-    """``python -m torch.distributed.run --nproc_per_node nproc chip_smoke.py
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc chip_smoke.py
     --ddp-worker worker out``, its output shown; raises SystemExit when it
-    fails or outlasts DDP_TIMEOUT_S (then it and its ranks are killed).
+    fails or outlasts DDP_TIMEOUT_S (then it and its ranks are stopped).
     Returns the wall seconds."""
-    import signal
-
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc), "--master_addr",
-           "127.0.0.1", "--master_port", str(free_port()), str(Path(__file__).resolve()), "--ddp-worker", worker,
-           str(out)]
-    print(f"  launch: {' '.join(cmd[1:])}", flush=True)
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent), start_new_session=True)
-    try:
-        rc = proc.wait(timeout=DDP_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-        raise SystemExit(f"{worker}: still running after {DDP_TIMEOUT_S} s, killed")
-    if rc != 0:
-        raise SystemExit(f"{worker}: the launch failed with exit code {rc}")
-    return time.perf_counter() - t0
-
-
-def free_port():
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    cmd = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           str(Path(__file__).resolve()), "--ddp-worker", worker, str(out)]
+    _, _, wall = run_cli(cmd, worker, DDP_TIMEOUT_S, capture=False)
+    return wall
 
 
 def ddp_worker(worker, out):
@@ -1644,6 +1634,131 @@ def run_phase13(smi, phase7, phase8):
     return {"pretrained": pretrained, "zoo": zoo, "gloo_evals": gloo, "wall_s": wall}
 
 
+BENCH_TIMEOUT_S = 600  # a phase-14 command past it is killed (the CLI's own budget is 540 s)
+ENTRY_RTOL = 1e-4  # 14b: entry()'s outputs, card against CPU, relative to each output's largest value
+
+
+def run_cli(args, label, timeout=BENCH_TIMEOUT_S, capture=True):
+    """``python <args>``, bounded by ``timeout`` seconds
+    (``dynamo_depth_torch/utils/bounded.py``: past it the command and every
+    process it started are stopped); raises SystemExit when it fails or
+    times out. Returns (stdout, stderr, wall seconds); with ``capture``
+    False the output is shown instead and both are None."""
+    from dynamo_depth_torch.utils import bounded
+
+    print(f"  {label}: python {' '.join(args)}", flush=True)
+    pipes = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) if capture else {}
+    t0 = time.perf_counter()
+    try:
+        proc = bounded.run([sys.executable, *args], timeout, cwd=str(Path(__file__).resolve().parent), **pipes)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"{label}: still running after {timeout} s, stopped")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        shown = f"\nstdout:\n{proc.stdout[-4000:]}\nstderr:\n{proc.stderr[-4000:]}" if capture else ""
+        raise SystemExit(f"{label}: exit code {proc.returncode}{shown}")
+    return proc.stdout, proc.stderr, wall
+
+
+def run_bench_cli(smi, argv, batches, dtype, step_ms):
+    """14a: ``python -m dynamo_depth_torch.bench.throughput`` as a user runs
+    it: the last stdout line is the contract, with a finite value > 0 for
+    the best of ``batches``; every leg completed and launched each kernel
+    6 times per step. Returns {"contract", "legs", "wall_s"}."""
+    out, err, wall = run_cli(["-m", "dynamo_depth_torch.bench.throughput", *argv], f"14a throughput {dtype}")
+    for line in err.splitlines():
+        if line.startswith("[bench]") and "leg result:" not in line:
+            print(f"    {line}")
+    contract = json.loads(out.strip().splitlines()[-1])
+    legs = [json.loads(line.split("leg result:", 1)[1]) for line in err.splitlines()
+            if line.startswith("[bench] leg result:")]
+    value = contract.get("value")
+    if (not isinstance(value, (int, float)) or not math.isfinite(value) or value <= 0 or contract["unit"] != "examples/s"
+            or not re.fullmatch(rf"kitti_litemono_fine_tune_train_throughput_{dtype}_b\d+", contract["metric"])):
+        raise SystemExit(f"14a: contract {contract}")
+    if [leg["batch_size"] for leg in legs] != batches:
+        raise SystemExit(f"14a: legs completed at batch {[leg['batch_size'] for leg in legs]}, expected {batches}")
+    expected = {k: 6 for k in ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd")}
+    for leg in legs:
+        if leg["launches_per_step"] != expected:
+            raise SystemExit(f"14a: b{leg['batch_size']} launched {leg['launches_per_step']} per step, expected {expected}")
+        print(f"    {dtype} b{leg['batch_size']}: {leg['examples_per_sec']:.2f} examples/s, {leg['ms_per_step']:.2f} "
+              f"ms/step, {leg['flops_per_step']:.4e} FLOP/step (FlopCounterMode), MFU {100 * leg['mfu']:.3f}% of "
+              f"the {dtype} peak; launches per step {leg['launches_per_step']}; the b3 step in-process: "
+              f"float32 {step_ms['float32']:.2f} ms (phase 6), bfloat16 {step_ms['bfloat16']:.2f} ms (phase 10), on {smi}")
+    print(f"    contract: {json.dumps(contract)} ({wall:.1f} s of wall)")
+    return {"contract": contract, "legs": legs, "wall_s": wall}
+
+
+def run_entry(smi):
+    """14b: ``entry()`` on the card against ``entry(device="cpu")`` with the
+    card's weights: the three outputs within ENTRY_RTOL, no kernel launched;
+    the card's forward timed (median of 5 after 2 warm-ups)."""
+    import torch
+
+    from dynamo_depth_torch.entry import ENTRY_OUTPUTS, entry
+    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    fn, (model, batch) = entry()
+    fn_cpu, (model_cpu, batch_cpu) = entry(device="cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    reset_launch_counts()
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    if any(launches.values()):
+        raise SystemExit(f"14b: entry()'s forward launched {launches}")
+    cpu = fn_cpu(model_cpu, batch_cpu)
+    errs = {}
+    for key, a, b in zip(ENTRY_OUTPUTS, card, cpu):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise SystemExit(f"14b: {key} of shape {tuple(a.shape)} vs {tuple(b.shape)}, or not finite")
+        errs[str(key)] = max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+        agree(f"14b entry() {key} {tuple(a.shape)} (relative to its largest value)", errs[str(key)], ENTRY_RTOL)
+    ms = float(np.median(times[2:]))
+    print(f"  14b entry(): LiteMono forward with flow and mask at {H}x{W}, batch 1, {ms:.2f} ms on the card "
+          f"(median of 5 after 2 warm-ups), on {smi}")
+    return {"rel_err": errs, "ms": ms}
+
+
+def run_dryruns(smi):
+    """14c: ``python -m dynamo_depth_torch.entry 1`` (NCCL) and ``... 2
+    --backend=gloo`` (two ranks sharing the card): both arms completed, each
+    arm's loss finite; the arms' wall seconds."""
+    records = {}
+    for label, argv in (("nccl1", ["1"]), ("gloo2", ["2", "--backend=gloo"])):
+        out, _, wall = run_cli(["-m", "dynamo_depth_torch.entry", *argv], f"14c dryrun {label}")
+        n = argv[0]
+        losses = re.findall(rf"dryrun_multichip\({n}\) \[([^\]]+)\]: fine_tune step OK, loss=(\S+)", out)
+        arms = dict(re.findall(r"dryrun_multichip: (\S+) arm took (\S+) s of wall", out))
+        if "dryrun_multichip: both arms completed" not in out or len(losses) != 2 or \
+                not all(math.isfinite(float(v)) for _, v in losses):
+            raise SystemExit(f"14c {label}: not both arms completed with finite losses:\n{out[-4000:]}")
+        records[label] = {"losses": {tag: float(v) for tag, v in losses}, "arm_wall_s": {k: float(v) for k, v in arms.items()},
+                          "wall_s": wall}
+        print(f"    {label}: " + "; ".join(f"{tag} loss {v}" for tag, v in losses) + "; arms "
+              + ", ".join(f"{k} {v} s" for k, v in arms.items()) + f"; {wall:.1f} s of wall with the launch, on {smi}")
+    return records
+
+
+def run_phase14(smi, step_ms):
+    """Phase 14: the throughput CLI (14a), ``entry()`` (14b) and the dry
+    run (14c)."""
+    t0 = time.perf_counter()
+    bench = {"bfloat16": run_bench_cli(smi, [], [7, 8, 3], "bfloat16", step_ms),
+             "float32": run_bench_cli(smi, ["--compute_dtype", "float32", "--batch_size", "3"], [3], "float32", step_ms)}
+    entry = run_entry(smi)
+    dryrun = run_dryruns(smi)
+    wall = time.perf_counter() - t0
+    print(f"phase 14: {wall:.1f} s")
+    return {"bench": bench, "entry": entry, "dryrun": dryrun, "wall_s": wall}
+
+
 def main():
     import torch
 
@@ -1941,6 +2056,12 @@ def main():
     print("phase 13:")
     phase13 = run_phase13(smi, phase7, phase8)
 
+    # ---- 14. the throughput CLI, entry() and the dry run --------------------
+    print("phase 14:")
+    torch.cuda.empty_cache()  # the legs and ranks are processes of their own
+    phase14 = run_phase14(smi, {"float32": ms, "bfloat16": phase10["step"]["ms"]})
+    bench_legs = {f"{dtype}_b{leg['batch_size']}": leg for dtype, rec in phase14["bench"].items() for leg in rec["legs"]}
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -1975,6 +2096,7 @@ def main():
             "launches_profile_tool": phase12["profile_tool"]["launches"][k],
             "launches_pretrained_curriculum": phase13["pretrained"]["launches"][k],
             "launches_per_step_by_phase_pretrained": phase13["pretrained"]["per_step"][k],
+            "launches_per_step_bench": {name: leg["launches_per_step"][k] for name, leg in bench_legs.items()},
         }
         if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
             ms_e, plain_e, lib_e = timings[(k, "ego")]
@@ -2005,7 +2127,11 @@ def main():
                "phase13": {"backbone_load_s": phase13["pretrained"]["load_s"],
                            "pretrained_curriculum": phase13["pretrained"]["summary"],
                            "zoo_eval_depth_s": phase13["zoo"]["seconds"],
-                           "gloo_evals_wall_s": phase13["gloo_evals"]["wall_s"], "wall_s": phase13["wall_s"]}}
+                           "gloo_evals_wall_s": phase13["gloo_evals"]["wall_s"], "wall_s": phase13["wall_s"]},
+               "phase14": {"bench_legs": {name: {k: leg[k] for k in ("examples_per_sec", "ms_per_step", "flops_per_step",
+                                                                      "mfu")} for name, leg in bench_legs.items()},
+                           "contracts": {d: rec["contract"] for d, rec in phase14["bench"].items()},
+                           "entry": phase14["entry"], "dryrun": phase14["dryrun"], "wall_s": phase14["wall_s"]}}
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "steps": summary,
                       "card": smi}))

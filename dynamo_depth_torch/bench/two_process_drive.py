@@ -41,7 +41,6 @@ import argparse
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -63,12 +62,6 @@ PHASE_FOLDERS = ("disp_init_00", "motion_init_00", "mask_init_00", "fine_tune_00
 EVAL_DATASETS = ("kitti", "waymo")
 TIMEOUT_S = 900  # a worker past it is killed: a hung collective fails the drive
 H, W, STEPS = 32, 64, 2
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 # --------------------------------------------------------------- worker side
@@ -184,8 +177,10 @@ def _launch(args, worker: str, name: str, nproc: int, extra=()) -> subprocess.Po
     module = ["-m", "dynamo_depth_torch.bench.two_process_drive", "--worker", worker, "--name", name,
               "--out", args.out, *extra]
     if nproc > 1:
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
-               "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), *module]
+        # --standalone: torchrun binds its rendezvous store to a port the
+        # system picks and keeps it (no port found free and handed on).
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+               *module]
     else:
         cmd = [sys.executable, *module]
     env = dict(os.environ, DYNAMO_SPLITS_DIR=str(Path(args.out) / "splits"), OMP_NUM_THREADS="1",

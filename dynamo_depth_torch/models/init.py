@@ -23,6 +23,7 @@ convs too.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional
 
@@ -36,16 +37,37 @@ _TRUNCATED_STD = 0.87962566103423978
 LAYER_SCALE_INIT = 1e-6
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch's intra-op pool cut to the calling thread, restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax's ``lecun_normal`` in place: variance ``1 / fan_in`` after
     truncation at two stds of the untruncated normal. Drawn as
     ``jax.random.truncated_normal`` draws, through the inverse CDF: one
     uniform draw per entry between the CDF's values at -2 and 2, mapped by
     erfinv (``nn.init.trunc_normal_`` of recent torch rejects and redraws,
-    several times slower on the CPU)."""
+    several times slower on the CPU).
+
+    erfinv runs on the calling thread alone. On the CPU torch splits it
+    over the intra-op pool even for a few thousand entries, and the first
+    such call in a process was seen to return some worker threads' chunks
+    off by up to 5e-5 (3 fresh processes of 400, torch 2.13, 8 threads;
+    never on one thread, nor on a later call): two processes drawing from
+    one seed then held different weights."""
     std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
     edge = math.erf(2.0 / math.sqrt(2.0))
-    weight.uniform_(-edge, edge, generator=generator).erfinv_().mul_(std * math.sqrt(2.0))
+    weight.uniform_(-edge, edge, generator=generator)
+    with _one_thread():
+        weight.erfinv_()
+    weight.mul_(std * math.sqrt(2.0))
     return weight.clamp_(-2.0 * std, 2.0 * std)
 
 

@@ -8,14 +8,23 @@ import torch.nn.functional as F
 
 
 class Conv3x3(nn.Module):
-    """Reflection-pad + 3x3 conv (layers.py:100-116)."""
+    """Reflection-pad + 3x3 conv (layers.py:100-116).
+
+    An axis of one pixel is padded as ``jnp.pad(..., mode="reflect")`` pads
+    it, by repeating the pixel (the JAX package's ``reflect_pad``); torch's
+    reflection padding refuses it. monodepthv2 at 32x64 has a 1x2 bottom
+    level."""
 
     def __init__(self, in_channels, out_channels):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1, padding_mode="reflect")
 
     def forward(self, x):
-        return self.conv(x)
+        if min(x.shape[-2:]) > 1:
+            return self.conv(x)
+        for dim, pad in ((-1, (1, 1, 0, 0)), (-2, (0, 0, 1, 1))):
+            x = F.pad(x, pad, mode="reflect" if x.shape[dim] > 1 else "replicate")
+        return F.conv2d(x, self.conv.weight, self.conv.bias)
 
 
 class ConvBlock(nn.Module):

@@ -6,11 +6,13 @@ from dynamo_depth_torch.parallel.dist import (  # noqa: F401
     all_reduce_sum,
     any_rank,
     barrier,
+    broadcast_state,
     check_replicated,
     init_distributed,
     is_main_process,
     local_rank,
     rank,
+    spawn_ranks,
     state_fingerprint,
     world_size,
 )

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import List, Optional
+import time
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -61,6 +62,54 @@ def init_distributed(device: Optional[str] = None, backend: Optional[str] = None
     return True
 
 
+def _spawned_rank(rank: int, world: int, port: int, fn: Callable, args: Sequence) -> None:
+    """A rank of :func:`start_ranks`: torchrun's environment, joining the
+    launcher's store on ``port`` as a client (as torchrun's ranks join its
+    agent's store), then ``fn(*args)``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), TORCHELASTIC_USE_AGENT_STORE="True")
+    fn(*args)
+
+
+def start_ranks(fn: Callable, args: Sequence = (), world: int = 1):
+    """Start ``fn(*args)`` as ranks 0..``world``-1 of one launch, each a
+    process spawned on this machine with torchrun's environment (``fn``
+    joins the group through :func:`init_distributed`; it must be
+    picklable). Returns the spawn context for :func:`join_ranks`; it holds
+    the rendezvous store, so the store's port stays bound while it lives."""
+    import torch.multiprocessing as mp
+
+    # The rendezvous store is served here on a port the system picks, which
+    # stays bound while the store lives: no other process can take it before
+    # the ranks join, as it can a port found free, closed and handed on.
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    ctx = mp.start_processes(_spawned_rank, args=(world, store.port, fn, tuple(args)), nprocs=world, join=False,
+                             start_method="spawn")
+    ctx.store = store
+    return ctx
+
+
+def join_ranks(ctx, timeout: Optional[float] = None) -> None:
+    """Wait for the ranks of :func:`start_ranks`. Raises if a rank fails
+    (with its traceback) or if they outlast ``timeout`` s, and leaves none
+    running."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1):
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{len(ctx.processes)} ranks still running after {timeout:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def spawn_ranks(fn: Callable, args: Sequence = (), world: int = 1, timeout: Optional[float] = None) -> None:
+    """:func:`start_ranks`, then :func:`join_ranks`."""
+    join_ranks(start_ranks(fn, args, world), timeout)
+
+
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
@@ -97,22 +146,35 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum each tensor over the ranks, in place: one ``all_reduce`` per
-    (dtype, device) of the flattened tensors. Returns ``tensors``."""
-    if world_size() == 1:
-        return tensors
+def _coalesced(tensors: List[torch.Tensor], collective: Callable) -> None:
+    """``collective(flat)`` on the flattened tensors of each (dtype,
+    device), then the result copied back into the tensors in place."""
     groups = {}
     for t in tensors:
         groups.setdefault((t.dtype, t.device), []).append(t)
     for group in groups.values():
         flat = torch.cat([t.detach().reshape(-1) for t in group])
-        dist.all_reduce(flat)
+        collective(flat)
         offset = 0
         for t in group:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each tensor over the ranks, in place: one ``all_reduce`` per
+    (dtype, device) of the flattened tensors. Returns ``tensors``."""
+    if world_size() > 1:
+        _coalesced(tensors, dist.all_reduce)
     return tensors
+
+
+def broadcast_state(module: torch.nn.Module) -> None:
+    """Copy rank 0's parameters and buffers to every rank, in place: one
+    ``broadcast`` per (dtype, device) of the flattened tensors. A no-op for
+    one process."""
+    if world_size() > 1:
+        _coalesced(list(module.state_dict().values()), lambda flat: dist.broadcast(flat, src=0))
 
 
 def all_reduce_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:

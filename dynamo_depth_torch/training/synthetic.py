@@ -21,15 +21,20 @@ from dynamo_depth_torch.ops.geometry import backproject, project, transformation
 K_NORM = np.array([[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
 
 
-def synthetic_batch(cfg, batch_size, height, width, seed=0):
+def synthetic_batch(cfg, batch_size, height, width, seed=0, with_color=True):
     """{('color_aug', f, 0), ('color', f, 0): (B, H, W, 3), ('ts', f): (B,),
-    ('K', s), ('inv_K', s): (B, 4, 4)} as float32 numpy arrays."""
+    ('K', s), ('inv_K', s): (B, 4, 4)} as float32 numpy arrays; with
+    ``with_color=False`` only the ``color_aug`` images, which are all the
+    forward reads, drawn one after another."""
     rng = np.random.RandomState(seed)
     batch = {}
     for f in cfg.frame_ids:
         batch[("color_aug", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32)
-        batch[("color", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32)
-        batch[("ts", f)] = np.ones((batch_size,), np.float32)
+        if with_color:
+            batch[("color", f, 0)] = rng.rand(batch_size, height, width, 3).astype(np.float32)
+            batch[("ts", f)] = np.ones((batch_size,), np.float32)
+    if not with_color:
+        return batch
     for s in cfg.scales:
         K = K_NORM.copy()
         K[0] *= width // (2 ** s)

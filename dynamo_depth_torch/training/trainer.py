@@ -119,12 +119,15 @@ class Trainer:
         self.log_path = osp.join(cfg.log_dir, cfg.model_name)
 
         # The JAX package's random init, drawn on the CPU from the seed: the
-        # same weights on the card and the CPU, and on every rank.
+        # same weights on the card and the CPU, and in every process
+        # (models/init.py). Under a process group every rank then takes rank
+        # 0's draw, as the JAX package replicates one init.
         self.model = DynamoModel(
             depth_model=cfg.depth_model, encoder_num_layers=cfg.encoder_num_layers,
             scales=tuple(cfg.scales), frame_ids=tuple(cfg.frame_ids), drop_path_rate=drop_path_rate,
             generator=torch.Generator().manual_seed(cfg.seed),
         ).to(self.device)
+        pdist.broadcast_state(self.model)
         if cfg.load_ckpt:
             self.load_model()
         elif cfg.weights_init == "pretrained":

@@ -137,3 +137,27 @@ def test_the_trainer_draws_the_same_weights_on_every_construction():
     assert not torch.equal(a["pose_enc.encoder.conv1.weight"], c["pose_enc.encoder.conv1.weight"])
     ref = DynamoModel(generator=torch.Generator().manual_seed(0), drop_path_rate=0.4).state_dict()
     assert all(torch.equal(a[k], ref[k]) for k in a)
+
+
+def test_fresh_processes_draw_the_same_weights():
+    """Processes started apart draw the same weights from one seed, as the
+    ranks of a launch and the two sides of ``bench/grad_compare.py`` must.
+    The first erfinv of a process is its draw of the first kernel; torch
+    split it over the thread pool, where a worker's chunk could come out
+    off by up to 5e-5 (``tests/first_erfinv_stress.py``). ``lecun_normal_``
+    keeps erfinv on the calling thread and leaves the pool's size as it
+    was."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from dynamo_depth_torch.parallel.dist import state_fingerprint
+    from torch_ddp_workers import init_fingerprints
+
+    models = ("monodepthv2", "litemono")
+    threads = torch.get_num_threads()
+    ref = [state_fingerprint(DynamoModel(depth_model=d, generator=torch.Generator().manual_seed(0))).tolist()
+           for d in models]
+    assert torch.get_num_threads() == threads
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        drawn = list(pool.map(init_fingerprints, [models] * 4))
+    assert all(fp == ref for fp in drawn)

@@ -1,16 +1,16 @@
-"""Rank processes of ``tests/test_torch_ddp.py`` (this file holds no test).
+"""Rank processes of ``tests/test_torch_ddp.py`` and the other multi-process
+tests (this file holds no test).
 
-Each function runs in a process that ``torch.multiprocessing`` spawned, as
-rank ``rank`` of ``world``: it exports torchrun's environment, joins the
-gloo group through ``init_distributed``, runs the port on the CPU with one
-thread, and pickles what it saw into ``out_dir``. Only the port is
-imported here, so a rank starts without JAX.
+Each ``*_rank`` function runs in a process that ``pdist.start_ranks``
+spawned with torchrun's environment: it joins the gloo group through
+``init_distributed``, runs the port on the CPU with one thread, and pickles
+what it saw into ``out_dir``. ``init_fingerprints`` runs in a spawned
+process without a group. Only the port is imported here, so a process
+starts without JAX.
 """
 
 import os
 import pickle
-import socket
-import time
 from pathlib import Path
 
 import torch
@@ -19,44 +19,25 @@ import torch.distributed as dist
 from dynamo_depth_torch.parallel import dist as pdist
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def start_ranks(fn, args, world=2):
-    """Start ``fn(rank, world, port, *args)`` on ``world`` spawned processes."""
-    return torch.multiprocessing.start_processes(fn, args=(world, free_port(), *args), nprocs=world, join=False,
-                                                 start_method="spawn")
+    """Start ``fn(*args)`` on ``world`` spawned ranks (``pdist.start_ranks``)."""
+    return pdist.start_ranks(fn, args, world)
 
 
 def join_ranks(ctx, timeout=300):
-    """Wait for the ranks of :func:`start_ranks`; raises if one fails (with
-    its traceback) or if they outlast ``timeout`` s, and leaves none
-    running."""
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=1):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"ranks still running after {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    pdist.join_ranks(ctx, timeout)
 
 
 def run_ranks(fn, args, world=2, timeout=300):
-    join_ranks(start_ranks(fn, args, world), timeout)
+    pdist.spawn_ranks(fn, args, world, timeout)
 
 
-def _join(rank, world, port):
+def _join():
+    """Join the launch's gloo group on one thread -> (rank, world)."""
     torch.set_num_threads(1)
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(port))
     assert pdist.init_distributed("cpu")
-    assert dist.get_backend() == "gloo" and pdist.world_size() == world and pdist.rank() == rank
+    assert dist.get_backend() == "gloo"
+    return pdist.rank(), pdist.world_size()
 
 
 def _numpy_state(module):
@@ -71,7 +52,7 @@ def _fingerprint(tensors):
     return pdist.state_fingerprint(holder).tolist()
 
 
-def step_rank(rank, world, port, out_dir):
+def step_rank(out_dir):
     """One step of each phase of ``inputs.pkl`` from its weights, on this
     rank's rows, with the JAX draws of this rank's device injected."""
     from dynamo_depth_torch.config import DynamoConfig
@@ -79,7 +60,7 @@ def step_rank(rank, world, port, out_dir):
     from dynamo_depth_torch.training import losses as losses_mod
     from dynamo_depth_torch.training.trainer import Trainer
 
-    _join(rank, world, port)
+    rank, world = _join()
     inputs = pickle.loads((Path(out_dir) / "inputs.pkl").read_bytes())
     cfg = DynamoConfig(**inputs["cfg"])
     local = {k: v[rank * cfg.batch_size:(rank + 1) * cfg.batch_size] for k, v in inputs["batch"].items()}
@@ -139,7 +120,7 @@ def step_rank(rank, world, port, out_dir):
     dist.destroy_process_group()
 
 
-def curriculum_rank(rank, world, port, out_dir, argv):
+def curriculum_rank(out_dir, argv):
     """``check_replicated`` on a copy of the weights that rank 1 perturbed,
     then ``dynamo_depth_torch.train.main(argv + --log_dir <out_dir>/rank<r>)``
     with every step's wrapper and every phase's weights before and after
@@ -148,7 +129,7 @@ def curriculum_rank(rank, world, port, out_dir, argv):
     from dynamo_depth_torch.models.model import DynamoModel
     from dynamo_depth_torch.training import trainer as trainer_mod
 
-    _join(rank, world, port)
+    rank, world = _join()
     out = {}
     torch.manual_seed(0)
     model = DynamoModel(drop_path_rate=0.0)
@@ -185,7 +166,7 @@ def curriculum_rank(rank, world, port, out_dir, argv):
 
 
 
-def pretrained_rank(rank, world, port, work_dir, out_dir):
+def pretrained_rank(work_dir, out_dir):
     """A ``Trainer`` with ``weights_init="pretrained"`` built in ``work_dir``
     (whose ``ckpt/`` holds the backbone files; ``check_replicated`` runs in
     its ``__init__``): what this rank printed, and its state fingerprint.
@@ -196,7 +177,7 @@ def pretrained_rank(rank, world, port, work_dir, out_dir):
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.training.trainer import Trainer
 
-    _join(rank, world, port)
+    rank, world = _join()
     assert pdist.any_rank(rank == 1) and not pdist.any_rank(False)
     rows = pdist.all_gather_rows(torch.full((2, 4, 4), float(rank)))
     assert torch.equal(rows, torch.cat([torch.full((2, 4, 4), float(r)) for r in range(world)]))
@@ -208,3 +189,12 @@ def pretrained_rank(rank, world, port, work_dir, out_dir):
     (out / f"pretrained_rank{rank}.txt").write_text(printed.getvalue())
     (out / f"pretrained_rank{rank}.fp").write_text(str(pdist.state_fingerprint(trainer.model).tolist()))
     dist.destroy_process_group()
+
+
+def init_fingerprints(depth_models):
+    """In a process of its own, on torch's default thread pool: the state
+    fingerprint of each depth model's ``DynamoModel`` drawn from seed 0."""
+    from dynamo_depth_torch.models.model import DynamoModel
+
+    return [pdist.state_fingerprint(DynamoModel(depth_model=d, generator=torch.Generator().manual_seed(0))).tolist()
+            for d in depth_models]
