@@ -131,13 +131,27 @@ Phases (any failure exits non-zero, nothing is caught):
    dynamo_depth_torch.bench.throughput`` (bfloat16 legs at batch 7, 8 and
    3) and again with ``--compute_dtype float32 --batch_size 3``: its last
    stdout line is the contract with a finite value > 0, every leg completed
-   and launched each kernel 6 times per step; each leg's examples/s, ms/step
-   and MFU beside phases 6 and 10's steps; (b) ``entry()`` on the card
+   and launched each kernel 6 times per step, the warp's instances those of
+   the operand dtype its batch picks under ``--image_dtype auto`` (bfloat16
+   at b8, float32 at b3 and b7); each leg's examples/s, ms/step and MFU
+   beside phases 6 and 10's steps; (b) ``entry()`` on the card
    against ``entry(device="cpu")`` on the card's weights, its three outputs
    within ``ENTRY_RTOL``, no kernel launched, the card's forward timed; (c)
    ``python -m dynamo_depth_torch.entry 1`` (NCCL) and ``... 2
    --backend=gloo`` (two ranks sharing the card): both arms completed (a
-   budget skip fails here), finite losses, each arm's wall seconds.
+   budget skip fails here), finite losses, each arm's wall seconds;
+15. K1's and K2's bfloat16-image instances at batch 8, 192x640, where
+   ``--image_dtype auto`` casts the warp's source images to bfloat16: (b)
+   the LiteMono ``fine_tune`` step with float32 networks, timed as phase 6
+   with 6 launches per step of each bfloat16 instance and none of the
+   float32 warp instances, profiled, and one more step whose six warp
+   inputs are captured; (a) the instances against the plain version on the
+   bfloat16 image (a uniform grid, the ego-motion grid, a grid at the
+   clamp's ties and the six step grids), beside the float32 instances on
+   the rounded image; (b) the step on the card against the same step on the
+   CPU, phase 5's tolerances; (c) device ms, warm and cold, beside the float32
+   instances', the plain version's, the library's (``F.grid_sample`` of the
+   image widened to float32, the cast included) and the bytes bound.
 
 Prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -193,13 +207,38 @@ def check(name, err, tol):
 
 
 def launches_per_step(cfg, phase="fine_tune"):
-    """Launches of each kernel in one training step of ``phase``: one warp
-    and one photometric error per scale and source frame (6 for LiteMono's
-    3 scales, 8 for monodepthv2's 4), and in disp_init as many photometric
-    forwards again for the identity automask, whose inputs need no gradient."""
+    """Launches of each kernel instance in one training step of ``phase``:
+    one warp and one photometric error per scale and source frame (6 for
+    LiteMono's 3 scales, 8 for monodepthv2's 4), and in disp_init as many
+    photometric forwards again for the identity automask, whose inputs need
+    no gradient. The warp's instances are those of the image dtype
+    ``cfg.image_dtype`` picks for one card's batch (under auto bfloat16 from
+    7 * 2**17 pixels: batch 8 at 192x640), the other two launch 0 times."""
+    import torch
+
+    from dynamo_depth_torch.config import warp_image_dtype
+
     n = len(cfg.scales) * (len(cfg.frame_ids) - 1)
-    return {"warp_fwd": n, "warp_bwd": n, "photometric_fwd": 2 * n if phase == "disp_init" else n,
-            "photometric_bwd": n}
+    image = torch.empty(cfg.batch_size, 3, cfg.height, cfg.width, device="meta")
+    suffix = "_bf16" if warp_image_dtype(cfg, image) == torch.bfloat16 else ""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    counts.update({"warp_fwd" + suffix: n, "warp_bwd" + suffix: n,
+                   "photometric_fwd": 2 * n if phase == "disp_init" else n, "photometric_bwd": n})
+    return counts
+
+
+# Every kernel instance the wrappers count, in the launch counts' order.
+KERNEL_NAMES = ("warp_fwd", "warp_bwd", "warp_fwd_bf16", "warp_bwd_bf16", "photometric_fwd", "photometric_bwd")
+
+
+def instance_of(key):
+    """The launch-count name of a profiler entry of one of the port's
+    kernels (the warp's bfloat16 instances by their template argument), or
+    None for any other entry."""
+    for k in ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd"):
+        if f"{k}_kernel" in key:
+            return k + "_bf16" if k.startswith("warp") and "bfloat16" in key else k
+    return None
 
 
 def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", reload=True, weights_init="scratch"):
@@ -284,7 +323,7 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
     print(f"  images decoded by: {decoder}")
     if not any(decodes.values()):
         raise SystemExit("the curriculum decoded no image")
-    zero = [k for k, n in launches.items() if n == 0]
+    zero = [k for k, n in launches.items() if n == 0 and launches_per_step(trainer.cfg)[k]]
     if zero:
         raise SystemExit(f"kernels never launched in the curriculum: {zero}")
     per_step = {k: {} for k in launches}
@@ -525,12 +564,15 @@ def run_eval(smi, folder, work):
 
 
 def card_vs_cpu_step(small):
-    """Phases 5 and 9: one fine_tune step of ``small`` on the card (kernels)
-    against the same step on the CPU (plain versions) from the same weights;
-    raises SystemExit when a loss term disagrees."""
+    """Phases 5, 9 and 15b: one fine_tune step of ``small`` on the card
+    (kernels) against the same step on the CPU (plain versions) from the
+    same weights; raises SystemExit when a loss term disagrees. Returns
+    {"rel": each term's relative difference, "launches": the card step's
+    launch counts}."""
     import torch
 
     from dynamo_depth_torch.ops import ground_plane
+    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
     from dynamo_depth_torch.training.synthetic import synthetic_batch
     from dynamo_depth_torch.training.trainer import Trainer
 
@@ -544,11 +586,15 @@ def card_vs_cpu_step(small):
     for label, tr in (("cuda", t_gpu), ("cpu", t_cpu)):
         idx_gen = torch.Generator().manual_seed(1)
         ground_plane.draw_sample_idx = lambda b, t, n, g, device: torch.randint(0, n, (b, t), generator=idx_gen).to(device)
+        reset_launch_counts()
         try:
             losses = tr.train_step(tr.to_device(batch_small), torch.Generator(device=tr.device).manual_seed(0), 5)
         finally:
             ground_plane.draw_sample_idx = draw
         results[label] = {k: float(v) for k, v in losses.items()}
+        if label == "cuda":
+            torch.cuda.synchronize()
+            launches = launch_counts()
     rel = {k: abs(results["cuda"][k] - results["cpu"][k]) / max(abs(results["cpu"][k]), 1e-6) for k in results["cpu"]}
     # cuDNN and the CPU convolutions sum in other orders: 1e-4 relative.
     # d_ground alone gets 5e-2: RANSAC keeps the hypothesis with the most
@@ -556,11 +602,12 @@ def card_vs_cpu_step(small):
     # points across that line, which can change the plane it keeps.
     tol = {k: 5e-2 if k == "loss_term/d_ground" else 1e-4 for k in rel}
     worst = max(rel, key=lambda k: rel[k] / tol[k])
-    print(f"fine_tune step {small.depth_model} at {small.height}x{small.width}, card (kernels) vs CPU (plain): "
-          f"worst relative loss difference {rel[worst]:.2e} in {worst} (tolerance {tol[worst]:.0e}); "
-          f"d_ground {rel['loss_term/d_ground']:.2e}")
+    print(f"fine_tune step {small.depth_model} at {small.height}x{small.width}, batch {small.batch_size}, card "
+          f"(kernels) vs CPU (plain): worst relative loss difference {rel[worst]:.2e} in {worst} (tolerance "
+          f"{tol[worst]:.0e}); d_ground {rel['loss_term/d_ground']:.2e}")
     if rel[worst] > tol[worst]:
         raise SystemExit(f"card step disagrees with the CPU step: {results}")
+    return {"rel": rel, "launches": launches}
 
 
 def timed_steps(trainer, batch, gen, smi, label):
@@ -648,12 +695,13 @@ def profiled_step(trainer, batch, gen, step, step_ms, top=8):
     print(f"  the four port kernels: {ours / 1e3:.3f} ms ({100 * ours / 1e3 / max(busy_ms, 1e-9):.2f}% of device time)")
     per_step = launches_per_step(trainer.cfg)
     in_step, launches = {}, {}
-    for k in per_step:
-        mine = [e for e in events if f"{k}_kernel" in e.key]
+    for k, n in per_step.items():
+        mine = [e for e in events if instance_of(e.key) == k]
         launches[k] = sum(e.count for e in mine)
-        if launches[k] != per_step[k]:
-            raise SystemExit(f"{k}: {launches[k]} launches in the profiled step, expected {per_step[k]}")
-        in_step[k] = sum(self_device_us(e) for e in mine) / 1e3 / launches[k]
+        if launches[k] != n:
+            raise SystemExit(f"{k}: {launches[k]} launches in the profiled step, expected {n}")
+        if n:
+            in_step[k] = sum(self_device_us(e) for e in mine) / 1e3 / n
     return {"busy_ms": busy_ms, "wall_ms": wall_ms, "ops": ops, "in_step_ms": in_step, "launches": launches}
 
 
@@ -1067,7 +1115,7 @@ def run_vis(smi, work):
     cfg = trainer.cfg
     if stub.inits != [{"project": "Dynamo", "name": "vis", "notes": cfg.comment, "config": cfg.to_dict()}]:
         raise SystemExit(f"wandb.init was called with {stub.inits}")
-    expected = {"warp_fwd": 2 * len(cfg.scales), "warp_bwd": 0, "photometric_fwd": 0, "photometric_bwd": 0}
+    expected = {**dict.fromkeys(KERNEL_NAMES, 0), "warp_fwd": 2 * len(cfg.scales)}
     if [c["phase"] for c in calls] != list(trainer_mod.PHASES) or any(c["launches"] != expected for c in calls):
         raise SystemExit(f"log_vis calls {calls}, expected one per phase launching {expected}")
     vis = [(data, step) for data, step in stub.logs if any(k.startswith("vis/") for k in data)]
@@ -1664,7 +1712,11 @@ def run_bench_cli(smi, argv, batches, dtype, step_ms):
     """14a: ``python -m dynamo_depth_torch.bench.throughput`` as a user runs
     it: the last stdout line is the contract, with a finite value > 0 for
     the best of ``batches``; every leg completed and launched each kernel
-    6 times per step. Returns {"contract", "legs", "wall_s"}."""
+    6 times per step, the warp's instances those of the operand dtype the
+    leg's batch picks under ``--image_dtype auto`` (bfloat16 at b8, float32
+    at b3 and b7). Returns {"contract", "legs", "wall_s"}."""
+    from dynamo_depth_torch.config import DynamoConfig
+
     out, err, wall = run_cli(["-m", "dynamo_depth_torch.bench.throughput", *argv], f"14a throughput {dtype}")
     for line in err.splitlines():
         if line.startswith("[bench]") and "leg result:" not in line:
@@ -1678,13 +1730,16 @@ def run_bench_cli(smi, argv, batches, dtype, step_ms):
         raise SystemExit(f"14a: contract {contract}")
     if [leg["batch_size"] for leg in legs] != batches:
         raise SystemExit(f"14a: legs completed at batch {[leg['batch_size'] for leg in legs]}, expected {batches}")
-    expected = {k: 6 for k in ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd")}
     for leg in legs:
-        if leg["launches_per_step"] != expected:
-            raise SystemExit(f"14a: b{leg['batch_size']} launched {leg['launches_per_step']} per step, expected {expected}")
+        expected = launches_per_step(DynamoConfig(dataset="kitti", batch_size=leg["batch_size"]))
+        operand = "bfloat16" if expected["warp_fwd_bf16"] else "float32"
+        if leg["launches_per_step"] != expected or leg["warp_operand_dtype"] != operand:
+            raise SystemExit(f"14a: b{leg['batch_size']} launched {leg['launches_per_step']} per step with "
+                             f"{leg['warp_operand_dtype']} warp operands, expected {expected} with {operand}")
         print(f"    {dtype} b{leg['batch_size']}: {leg['examples_per_sec']:.2f} examples/s, {leg['ms_per_step']:.2f} "
               f"ms/step, {leg['flops_per_step']:.4e} FLOP/step (FlopCounterMode), MFU {100 * leg['mfu']:.3f}% of "
-              f"the {dtype} peak; launches per step {leg['launches_per_step']}; the b3 step in-process: "
+              f"the {dtype} peak; {operand} warp operands, launches per step {leg['launches_per_step']}; "
+              f"the b3 step in-process: "
               f"float32 {step_ms['float32']:.2f} ms (phase 6), bfloat16 {step_ms['bfloat16']:.2f} ms (phase 10), on {smi}")
     print(f"    contract: {json.dumps(contract)} ({wall:.1f} s of wall)")
     return {"contract": contract, "legs": legs, "wall_s": wall}
@@ -1757,6 +1812,186 @@ def run_phase14(smi, step_ms):
     wall = time.perf_counter() - t0
     print(f"phase 14: {wall:.1f} s")
     return {"bench": bench, "entry": entry, "dryrun": dryrun, "wall_s": wall}
+
+
+B15 = 8  # phase 15: the throughput CLI's b8 leg, 983,040 px: bfloat16 warp operands under auto
+
+
+def warp_vs_plain_bf16(img, grids, g_warp):
+    """15a: K1/K2's bfloat16 instances against the plain version on the same
+    bfloat16 image (widened to float32) on each of ``grids`` ({label: grid}):
+    the output, d_grid (K2 with and without d_image) and d_image; beside the
+    float32 instances on the rounded image. Returns the largest error of
+    the output ("warp_fwd_bf16") and of d_grid ("warp_bwd_bf16")."""
+    import torch
+
+    from dynamo_depth_torch.ops.kernels import warp
+
+    img32 = img.float()
+    errs = {"warp_fwd_bf16": 0.0, "warp_bwd_bf16": 0.0}
+    for label, gr in grids.items():
+        out_k = warp.warp_fwd(img, gr)
+        d_img_k, d_grid_k = warp.warp_bwd(img, gr, g_warp, True)
+        _, d_grid_k2 = warp.warp_bwd(img, gr, g_warp, False)
+        img_r, grid_r = img.clone().requires_grad_(), gr.clone().requires_grad_()
+        out_p = warp.grid_sample_plain(img_r, grid_r)
+        d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_r, grid_r), g_warp)
+        out_32 = warp.warp_fwd(img32, gr)
+        _, d_grid_32 = warp.warp_bwd(img32, gr, g_warp, False)
+        torch.cuda.synchronize()
+        # The float32 instances' arithmetic after the taps: the same
+        # tolerances as theirs (phase 3).
+        err = max_err(out_k, out_p)
+        errs["warp_fwd_bf16"] = max(errs["warp_fwd_bf16"], err)
+        check(f"warp_fwd_bf16 vs plain ({label})", err, 1e-5)
+        err = max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p))
+        errs["warp_bwd_bf16"] = max(errs["warp_bwd_bf16"], err)
+        check(f"warp_bwd_bf16 d_grid vs plain ({label}, |d_grid| up to {float(d_grid_p.abs().max()):.1f})", err,
+              1e-5 * max(1.0, float(d_grid_p.abs().max())))
+        # d_image: float32 sums in no fixed order, each rounded once to
+        # bfloat16: one bfloat16 step (2^-7 relative) apart at most.
+        check(f"warp_bwd_bf16 d_image vs plain ({label})", max_err(d_img_k.float(), d_img_p.float()),
+              2**-7 * max(1.0, float(d_img_p.float().abs().max())))
+        print(f"    the float32 instances on the rounded image: output {max_err(out_k, out_32):.3e}, "
+              f"d_grid {max_err(d_grid_k2, d_grid_32):.3e} from the bfloat16 instances'")
+    return errs
+
+
+def run_phase15(smi, mem_rate, f32_rate):
+    """Phase 15: K1/K2's bfloat16-image instances at the b8 step's shapes
+    (8 x 3 x 192 x 640, ``--image_dtype auto``). (b) The LiteMono fine_tune
+    step at batch 8, float32 networks: 2 warm-up and 5 timed steps with the
+    launch counts set to 0 just before and read just after (6 of each
+    bfloat16 instance per step, none of the float32 warp instances), one
+    profiled step, one more whose six warp inputs are captured; (a) the
+    instances against the plain version on a uniform grid, the ego-motion
+    grid, a grid at the clamp's ties and the six step grids; (b) one step
+    on the card against the CPU from the same weights, phase 5's
+    tolerances; (c) device ms of the instances alone, warm and cold, beside
+    the float32 instances' on the rounded image, the plain version's, the
+    library's (``F.grid_sample`` of the image widened to float32, the cast
+    included) and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dynamo_depth_torch.bench.timing import device_ms
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.ops.kernels import warp
+    from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = DynamoConfig(dataset="kitti", depth_model="litemono", batch_size=B15, weights_init="scratch")
+    per_step = launches_per_step(cfg)
+    if not (per_step["warp_fwd_bf16"] == per_step["warp_bwd_bf16"] == 6 and per_step["warp_fwd"] == 0):
+        raise SystemExit(f"phase 15: batch {B15} at {H}x{W} under auto should warp bfloat16 images: {per_step}")
+
+    # ---- 15b: the b8 step (the bfloat16 instances' main path) --------------
+    trainer = Trainer(cfg)
+    batch = trainer.to_device(synthetic_batch(cfg, B15, H, W))
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    step = timed_steps(trainer, batch, gen, smi, "LiteMono float32, bfloat16 warp operands")
+    profiled = profiled_step(trainer, batch, gen, step["steps"], step["ms"])
+    captured = []
+    launch_fwd = warp.warp_fwd
+
+    def capture(image, gr):
+        captured.append((image.detach().clone(), gr.detach().clone()))
+        return launch_fwd(image, gr)
+
+    warp.warp_fwd = capture
+    try:
+        trainer.train_step(batch, gen, step["steps"] + 1)
+    finally:
+        warp.warp_fwd = launch_fwd
+    if len(captured) != 6 or any(im.dtype != torch.bfloat16 or im.shape != (B15, C, H, W) for im, _ in captured):
+        raise SystemExit(f"15b: captured {[(im.dtype, tuple(im.shape)) for im, _ in captured]}, expected 6 bfloat16 "
+                         f"images of {(B15, C, H, W)}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # ---- 15a: the instances against the plain version ----------------------
+    g = torch.Generator(device=dev).manual_seed(15)
+    img = torch.rand(B15, C, H, W, device=dev, generator=g).bfloat16()
+    uniform = torch.rand(B15, H, W, 2, device=dev, generator=g) * 2.2 - 1.1
+    g_warp = torch.randn(B15, C, H, W, device=dev, generator=g)
+    grids = {"uniform grid": uniform, "ego-motion grid": ego_motion_grid(B15, H, W, seed=0).to(dev),
+             f"grid with {int((uniform.clamp(-1, 1).abs() == 1).sum())} entries at the clamp's ties":
+                 uniform.clamp(-1.0, 1.0)}
+    print(f"15a: the bfloat16 instances vs plain at B={B15} C={C} {H}x{W}, the image rounded to bfloat16:")
+    errors = warp_vs_plain_bf16(img, grids, g_warp)
+    step_img = captured[0][0]
+    if any(not torch.equal(im, step_img) for im, _ in captured[::2]) or not all(
+            bool(torch.isfinite(gr).all()) for _, gr in captured):
+        raise SystemExit("15a: the step's warp inputs are not one image per source frame with finite grids")
+    step_errs = warp_vs_plain_bf16(step_img.contiguous(), {f"step grid {i}": gr for i, (_, gr) in enumerate(captured)},
+                                   g_warp)
+    errors = {k: max(v, step_errs[k]) for k, v in errors.items()}
+
+    # ---- 15b: the b8 step on the card against the CPU ----------------------
+    cmp = card_vs_cpu_step(cfg)
+    if cmp["launches"] != per_step:
+        raise SystemExit(f"15b: the card's step launched {cmp['launches']}, expected {per_step}")
+
+    # ---- 15c: device ms ------------------------------------------------------
+    P8 = B15 * H * W
+    work = {"warp_fwd_bf16": (8 + 2 * C + 4 * C, 12 + 5 * C), "warp_bwd_bf16": (8 + 2 * C + 4 * C + 8, 14 + 10 * C),
+            "warp_fwd": (8 + 4 * C + 4 * C, 12 + 5 * C), "warp_bwd": (8 + 4 * C + 4 * C + 8, 14 + 10 * C)}
+    bounds = {}
+    for k, (nbytes, nops) in work.items():
+        t_bytes, t_ops = nbytes * P8 / mem_rate * 1e3, nops * P8 / f32_rate * 1e3
+        bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+    def calls(image, gr):
+        """{kernel: (bfloat16 instance, its float32 instance on the rounded
+        image, plain version, library call)}"""
+        g_req = gr.clone().requires_grad_()
+        out_plain = warp.grid_sample_plain(image, g_req)
+        out_lib = F.grid_sample(image.float(), g_req, mode="bilinear", padding_mode="border", align_corners=True)
+        wide = image.float()
+        return {
+            "warp_fwd_bf16": (lambda: warp.warp_fwd(image, gr), lambda: warp.warp_fwd(wide, gr),
+                              lambda: warp.grid_sample_plain(image, gr),
+                              lambda: F.grid_sample(image.float(), gr, mode="bilinear", padding_mode="border",
+                                                    align_corners=True)),
+            "warp_bwd_bf16": (lambda: warp.warp_bwd(image, gr, g_warp, False),
+                              lambda: warp.warp_bwd(wide, gr, g_warp, False),
+                              lambda: torch.autograd.grad(out_plain, g_req, g_warp, retain_graph=True),
+                              lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True)),
+        }
+
+    timings = {}  # (kernel, grid) -> {"ms", "f32_ms", "plain_ms", "library_ms", "ms_cold", "f32_ms_cold", "library_ms_cold"}
+    print(f"15c: device ms at B={B15} C={C} {H}x{W} (torch.profiler; cold: a 64 MB overwrite before each call) on "
+          f"{smi}:")
+    for label, image, gr in [("uniform", img, uniform), ("ego", img, grids["ego-motion grid"])] + [
+            (f"step{i}", im, gr) for i, (im, gr) in enumerate(captured)]:
+        for k, (kern, f32, plain, lib) in calls(image, gr).items():
+            step_grid = label.startswith("step")
+            t = {"ms": device_ms(kern), "f32_ms": device_ms(f32), "library_ms": device_ms(lib),
+                 "ms_cold": device_ms(kern, cold=True), "f32_ms_cold": device_ms(f32, cold=True),
+                 "library_ms_cold": device_ms(lib, cold=True),
+                 "plain_ms": None if step_grid else device_ms(plain)}
+            timings[(k, label)] = t
+            if not step_grid:
+                print(f"  {k} [{label} grid]: bfloat16 instance {fmt_ms(t['ms'])} (cold {fmt_ms(t['ms_cold'])}) | "
+                      f"float32 instance {fmt_ms(t['f32_ms'])} (cold {fmt_ms(t['f32_ms_cold'])}) | plain "
+                      f"{fmt_ms(t['plain_ms'])} | library {fmt_ms(t['library_ms'])} (cold "
+                      f"{fmt_ms(t['library_ms_cold'])}) | bound {bounds[k][0]:.4f} ({bounds[k][1]}), float32 "
+                      f"instance's {bounds[k.removesuffix('_bf16')][0]:.4f}")
+    step_means = {}
+    for k in ("warp_fwd_bf16", "warp_bwd_bf16"):
+        step_means[k] = {f: mean_ms([timings[(k, f"step{i}")][f] for i in range(6)])
+                         for f in ("ms", "f32_ms", "library_ms", "ms_cold", "f32_ms_cold", "library_ms_cold")}
+        m = step_means[k]
+        print(f"  {k} on the b8 step's six grids, mean: bfloat16 instance {fmt_ms(m['ms'])} (cold "
+              f"{fmt_ms(m['ms_cold'])}) | float32 instance {fmt_ms(m['f32_ms'])} (cold {fmt_ms(m['f32_ms_cold'])}) | "
+              f"library {fmt_ms(m['library_ms'])} (cold {fmt_ms(m['library_ms_cold'])}) | in the step "
+              f"{profiled['in_step_ms'][k]:.4f} per launch")
+    wall = time.perf_counter() - t0
+    print(f"phase 15: {wall:.1f} s")
+    return {"step": step, "profiled": profiled, "errors": errors, "card_vs_cpu_rel": cmp["rel"],
+            "timings": timings, "step_means": step_means, "bounds": bounds, "wall_s": wall}
 
 
 def main():
@@ -2062,6 +2297,11 @@ def main():
     phase14 = run_phase14(smi, {"float32": ms, "bfloat16": phase10["step"]["ms"]})
     bench_legs = {f"{dtype}_b{leg['batch_size']}": leg for dtype, rec in phase14["bench"].items() for leg in rec["legs"]}
 
+    # ---- 15. K1/K2's bfloat16-image instances at batch 8 -------------------
+    print("phase 15:")
+    torch.cuda.empty_cache()
+    phase15 = run_phase15(smi, mem_rate, f32_rate)
+
     # ---- kernels line, result line -----------------------------------------
     sources = {
         "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
@@ -2107,6 +2347,26 @@ def main():
                           "ms_step_grids_cold": mean_ms(on_step_cold[k]),
                           "library_ms_step_grids_cold": mean_ms(lib_step_cold[k])})
         kernels.append(entry)
+    for k, replaces in (("warp_fwd_bf16", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
+                        ("warp_bwd_bf16", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:126")):
+        t, e, m = phase15["timings"][(k, "uniform")], phase15["timings"][(k, "ego")], phase15["step_means"][k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": "dynamo_depth_torch/csrc/warp.cu", "replaces": replaces,
+            "launches": phase15["step"]["launches"][k], "launches_per_step": phase15["step"]["launches"][k] /
+            phase15["step"]["steps"], "max_abs_err": phase15["errors"][k],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": phase15["bounds"][k][0],
+            "bound_by": phase15["bounds"][k][1], "library_ms": t["library_ms"], "shape": [B15, C, H, W],
+            "ms_cold": t["ms_cold"], "library_ms_cold": t["library_ms_cold"],
+            "float32_instance_ms": t["f32_ms"], "float32_instance_ms_cold": t["f32_ms_cold"],
+            "ms_ego_grid": e["ms"], "plain_ms_ego_grid": e["plain_ms"], "library_ms_ego_grid": e["library_ms"],
+            "ms_ego_grid_cold": e["ms_cold"], "float32_instance_ms_ego_grid": e["f32_ms"],
+            "ms_step_grids": m["ms"], "ms_step_grids_cold": m["ms_cold"], "library_ms_step_grids": m["library_ms"],
+            "library_ms_step_grids_cold": m["library_ms_cold"], "float32_instance_ms_step_grids": m["f32_ms"],
+            "float32_instance_ms_step_grids_cold": m["f32_ms_cold"],
+            "float32_instance_bound_ms": phase15["bounds"][k.removesuffix("_bf16")][0],
+            "in_step_ms": phase15["profiled"]["in_step_ms"][k],
+            "launches_per_step_bench": {name: leg["launches_per_step"][k] for name, leg in bench_legs.items()},
+        })
     summary = {"float32": {"ms": ms, "busy_ms": profiled["busy_ms"], "peak_bytes": peak},
                "monodepthv2": {"ms": phase9["step"]["ms"], "busy_ms": phase9["profiled"]["busy_ms"],
                                "peak_bytes": phase9["step"]["peak_bytes"], "curriculum": phase9["curriculum"]["summary"],
@@ -2131,7 +2391,10 @@ def main():
                "phase14": {"bench_legs": {name: {k: leg[k] for k in ("examples_per_sec", "ms_per_step", "flops_per_step",
                                                                       "mfu")} for name, leg in bench_legs.items()},
                            "contracts": {d: rec["contract"] for d, rec in phase14["bench"].items()},
-                           "entry": phase14["entry"], "dryrun": phase14["dryrun"], "wall_s": phase14["wall_s"]}}
+                           "entry": phase14["entry"], "dryrun": phase14["dryrun"], "wall_s": phase14["wall_s"]},
+               "phase15": {"ms": phase15["step"]["ms"], "busy_ms": phase15["profiled"]["busy_ms"],
+                           "peak_bytes": phase15["step"]["peak_bytes"], "in_step_ms": phase15["profiled"]["in_step_ms"],
+                           "card_vs_cpu_rel": phase15["card_vs_cpu_rel"], "wall_s": phase15["wall_s"]}}
     print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
                       "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "steps": summary,
                       "card": smi}))

@@ -19,7 +19,10 @@ turns (other, this, this, other) with
 median of CUDA events around one call. ``--step-inputs`` adds the warp's
 inputs of one main-path step, as ``chip_smoke.py`` phase 6 saves them (six
 images and grids): K1 and K2 run on each, with the same random gradient.
-Prints the card, one line per kernel and grid, and one JSON object last.
+Where both checkouts export K1's and K2's bfloat16-image instances
+(``warp_fwd_bf16``, ``warp_bwd_bf16``), those run too, on every warp input
+with the image rounded to bfloat16. Prints the card, one line per kernel
+and grid, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -51,27 +54,44 @@ def _other_build(root: Path):
     return mod
 
 
-def _launchers(builder, t):
-    """{(kernel, inputs): (launch, output)} for one checkout's libraries."""
-    warp = builder.load("warp", warp_wrapper._SIGNATURES)
+WARP_BF16 = ("warp_fwd_bf16", "warp_bwd_bf16")
+
+
+def _warp_lib(builder, names):
+    return builder.load("warp", {k: warp_wrapper._SIGNATURES[k] for k in names})
+
+
+def _exports_bf16(builder):
+    """Whether a checkout's warp library has the bfloat16-image instances
+    (an older checkout has only the float32 ones)."""
+    lib = _warp_lib(builder, ("warp_fwd", "warp_bwd"))
+    return all(hasattr(lib, k) for k in WARP_BF16)
+
+
+def _launchers(builder, t, bf16):
+    """{(kernel, inputs): (launch, output)} for one checkout's libraries;
+    ``bf16``: with the warp's bfloat16-image instances."""
+    warp = _warp_lib(builder, ("warp_fwd", "warp_bwd") + (WARP_BF16 if bf16 else ()))
     photo = builder.load("photometric", photometric_wrapper._SIGNATURES)
     s = torch.cuda.current_stream().cuda_stream
     out = {}
     warp_inputs = [("uniform grid", t["img"], t["grid"]), ("ego grid", t["img"], t["ego"]),
                    ("on-border grid", t["img"], t["on_border"])]
     warp_inputs += [(f"step grid {i}", im, gr) for i, (im, gr) in enumerate(t["step"])]
-    for label, img, grid in warp_inputs:
-        o = torch.empty(B, C, H, W, device="cuda")
-        d = torch.empty_like(grid)
-        if label != "on-border grid":
-            out[("warp_fwd", label)] = (
-                lambda o=o, img=img, grid=grid: build.check(warp.warp_fwd(img.data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
-                o,
+    for label, img32, grid in warp_inputs:
+        for suffix, img in (("", img32),) + ((("_bf16", img32.bfloat16()),) if bf16 else ()):
+            fwd, bwd = getattr(warp, "warp_fwd" + suffix), getattr(warp, "warp_bwd" + suffix)
+            o = torch.empty(B, C, H, W, device="cuda")
+            d = torch.empty_like(grid)
+            if label != "on-border grid":
+                out[("warp_fwd" + suffix, label)] = (
+                    lambda o=o, img=img, grid=grid, fwd=fwd: build.check(fwd(img.data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
+                    o,
+                )
+            out[("warp_bwd" + suffix, label)] = (
+                lambda d=d, img=img, grid=grid, bwd=bwd: build.check(bwd(img.data_ptr(), grid.data_ptr(), t["g_warp"].data_ptr(), d.data_ptr(), None, B, C, H, W, H, W, s), "warp_bwd"),
+                d,
             )
-        out[("warp_bwd", label)] = (
-            lambda d=d, img=img, grid=grid: build.check(warp.warp_bwd(img.data_ptr(), grid.data_ptr(), t["g_warp"].data_ptr(), d.data_ptr(), None, B, C, H, W, H, W, s), "warp_bwd"),
-            d,
-        )
     o = torch.empty(B, 1, H, W, device="cuda")
     out[("photometric_fwd", None)] = (
         lambda: build.check(photo.photometric_fwd(t["pred"].data_ptr(), t["target"].data_ptr(), o.data_ptr(), B, C, H, W, 0.85, s), "photometric_fwd"),
@@ -116,7 +136,9 @@ def main(argv=None):
         t["step"] = list(zip(saved["images"], saved["grids"]))
         if any(im.shape != (B, C, H, W) or gr.shape != (B, H, W, 2) for im, gr in t["step"]):
             raise SystemExit(f"{args.step_inputs}: the step's warp inputs are not of shape {(B, C, H, W)}")
-    sets = {"other": _launchers(_other_build(args.other.resolve()), t), "this": _launchers(build, t)}
+    other = _other_build(args.other.resolve())
+    bf16 = _exports_bf16(other) and _exports_bf16(build)
+    sets = {"other": _launchers(other, t, bf16), "this": _launchers(build, t, bf16)}
 
     diffs = {}
     for key in sets["this"]:
@@ -149,7 +171,7 @@ def main(argv=None):
         print(f"  {key[0]}{where}: other {fmt(row['other_ms'])} ({row['other_event_ms']:.5f}) | "
               f"this {fmt(row['this_ms'])} ({row['this_event_ms']:.5f}) | max abs diff {diffs[key]:.2e}")
     summary = {}
-    for k in ("warp_fwd", "warp_bwd"):
+    for k in ("warp_fwd", "warp_bwd") + WARP_BF16:
         step_rows = [r for r in rows if r["kernel"] == k and str(r["inputs"]).startswith("step grid")]
         if step_rows and all(r["other_ms"] is not None and r["this_ms"] is not None for r in step_rows):
             summary[k] = {side: sum(r[f"{side}_ms"] for r in step_rows) / len(step_rows) for side in ("other", "this")}

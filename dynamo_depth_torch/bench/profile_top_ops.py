@@ -7,7 +7,8 @@ for the trace the port's ``--profile`` writes (``Trainer.run_phase``:
 ``logs/<name>/traces/<phase>/trace.json``). It prints the top-N device
 kernels by total time with their count and mean, then a rollup by category:
 convolution/GEMM, elementwise, reduction/norm, each of the four port
-kernels by name, memcpy/memset, and the rest.
+kernels by name (the warp's bfloat16-image instances as ``warp_fwd_bf16`` and
+``warp_bwd_bf16``), memcpy/memset, and the rest.
 
 ``--by-op`` rolls device time up by the ``aten::`` operator that launched
 each kernel instead: a kernel's ``correlation`` id names the runtime call
@@ -37,6 +38,8 @@ from collections import defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNELS = ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd")
+# The launch-count names of the warp's bfloat16-image instances.
+BF16_INSTANCES = ("warp_fwd_bf16", "warp_bwd_bf16")
 # Category -> name fragments, first match wins (lower case).
 CATEGORIES = (
     ("convolution/GEMM", ("conv", "gemm", "gemv", "cutlass", "xmma", "cudnn", "fft", "winograd", "dgrad", "wgrad")),
@@ -60,7 +63,7 @@ def classify(name: str, cat: str = "kernel") -> str:
         return "memcpy/memset"
     for k in PORT_KERNELS:
         if f"{k}_kernel" in name:
-            return k
+            return k + "_bf16" if k + "_bf16" in BF16_INSTANCES and "bfloat16" in name else k
     n = name.lower()
     for category, fragments in CATEGORIES:
         if any(f in n for f in fragments):
@@ -116,7 +119,7 @@ def summarize(trace: dict) -> dict:
             table[key][0] += ms
             table[key][1] += 1
         op = ops.get(args.get("correlation"))
-        key = op or (category if category in PORT_KERNELS else f"<no aten op> {name[:60]}")
+        key = op or (category if category in PORT_KERNELS + BF16_INSTANCES else f"<no aten op> {name[:60]}")
         by_op[key][0] += ms
         by_op[key][1] += 1
         if cat != "kernel":

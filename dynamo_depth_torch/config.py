@@ -8,11 +8,13 @@ fields, defaults and two-stage resolution order
 so a config written for the JAX package parses here unchanged, and the same
 command line (:func:`parse_config`: the same flags, defaults and short
 names). Fields that
-only steered TPU formulations (``image_dtype``, ``pallas_warp``,
-``pallas_photometric``, ``prefetch_depth``) keep their names so configs
-still parse; on the card the warp and photometric kernels are the only path
-whatever they say. ``num_devices`` counts processes: one card each, so it is
-0 (the world size) or the world size of the launch (:meth:`DynamoConfig.validate`).
+only steered TPU formulations (``pallas_warp``, ``pallas_photometric``,
+``prefetch_depth``) keep their names so configs still parse; on the card the
+warp and photometric kernels are the only path whatever they say.
+``image_dtype`` changes what the step computes, as in the JAX package: it
+picks the dtype of the warp's source image (:func:`warp_image_dtype`).
+``num_devices`` counts processes: one card each, so it is 0 (the world size)
+or the world size of the launch (:meth:`DynamoConfig.validate`).
 """
 
 from __future__ import annotations
@@ -135,8 +137,8 @@ class DynamoConfig:
     # Compute dtype for network forward/backward ("bfloat16" or "float32").
     # Params and optimizer state are always float32. The port runs float32.
     compute_dtype: str = "float32"
-    # Storage dtype of the warp operand in the JAX package; the port's warp
-    # kernel always reads float32.
+    # Dtype of the warp's source image: "float32", "bfloat16", or "auto"
+    # (bfloat16 from WARP_BF16_PIXELS pixels up; warp_image_dtype).
     image_dtype: str = "auto"
     # Host pipeline: batches to keep in flight on device.
     prefetch_depth: int = 2
@@ -195,6 +197,34 @@ class DynamoConfig:
     def from_dict(cls, d: dict) -> "DynamoConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+# ``image_dtype="auto"`` warps a bfloat16 source image from this many pixels
+# (rows x height x width) up: the JAX package's knee
+# (``dynamo_depth_tpu/training/losses.py::_image_dtype``), between batch 7
+# (860,160 px) and batch 8 (983,040 px) at 192x640.
+WARP_BF16_PIXELS = 7 * 2**17
+
+
+def warp_image_dtype(cfg, image=None, shards: int = 1) -> torch.dtype:
+    """The dtype the warp's source image is cast to: the port's
+    ``_image_dtype``. ``image`` is NCHW; under ``auto`` it is bfloat16 once
+    ``shards * B * H * W >= WARP_BF16_PIXELS``, and float32 without an
+    image. ``shards`` is how many ranks' rows the JAX package's function
+    sees at once: 1 in the training step (its ``shard_map`` hands each
+    device its own ``batch_size`` rows, as each rank here holds its own),
+    the world size in validation and the visualisation (there it jits over
+    the global batch). Imports torch itself: this module does not, so that
+    ``bench/throughput.py``'s parent process stays light."""
+    import torch
+
+    mode = cfg.image_dtype
+    if mode == "auto":
+        if image is None:
+            return torch.float32
+        B, _, H, W = image.shape
+        return torch.bfloat16 if shards * B * H * W >= WARP_BF16_PIXELS else torch.float32
+    return torch.bfloat16 if mode == "bfloat16" else torch.float32
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -73,10 +73,30 @@
 // a uniform random grid, slower on the main path's), taps cached in L2 only,
 // each tap row's pair from one 16-byte load, the most L1 by carve-out.
 //
+// bfloat16 operands (K1 warp_fwd_bf16, K2 warp_bwd_bf16): the JAX package
+// casts the warp's source image to bfloat16 under --image_dtype bfloat16, and
+// under auto from 7 * 2^17 pixels per device (training/losses.py:36-90);
+// `_pallas_taps` then gathers bfloat16 taps (warp_kernel.py:83). These
+// instances are the same templates with the image as __nv_bfloat16: each tap
+// is read as bfloat16 and widened to float32, and every operation after that
+// runs in float32, so an instance is exactly the float32 kernel applied to
+// the bfloat16-rounded image. The grid, the gradient, the output and d_grid
+// stay float32; d_image, where the image needs one, is summed into a zeroed
+// float32 buffer that the wrapper casts to bfloat16.
+// - Bound: bytes, with 6 of taps per pixel at C = 3 instead of 12: K1 moves
+//   26 bytes per pixel (8 of grid, 6 of taps, 12 of output), K2 34 (8 of
+//   grid, 6 of taps, 12 of gradient, 8 of d_grid).
+// - Taps: 2-byte loads from the three channel planes through the read-only
+//   path. A tap row's pair (v00, v01) comes in one 4-byte load where it is
+//   4-byte aligned (an even origin, on an aligned plane), else as two 2-byte
+//   loads; the float32 instances keep their four 4-byte loads.
+// - Tiles, vectors and register limits are the float32 instances'.
+//
 // Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out and g_out
-// (B, C, Ho, Wo), d_grid (B, Ho, Wo, 2); all float32, contiguous. H, W >= 2;
-// H * W and Ho * Wo below 2^31.
+// (B, C, Ho, Wo), d_grid (B, Ho, Wo, 2); contiguous; the image float32 or
+// bfloat16, the rest float32. H, W >= 2; H * W and Ho * Wo below 2^31.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -113,8 +133,26 @@ __device__ __forceinline__ Coord unnormalize(float g, int size) {
   return r;
 }
 
+// A tap row's pair s[0], s[1] of the image, as float32.
+__device__ __forceinline__ void load_pair(const float* s, float& a, float& b) {
+  a = __ldg(s);
+  b = __ldg(s + 1);
+}
+
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* s, float& a, float& b) {
+  if ((reinterpret_cast<uintptr_t>(s) & 3) == 0) {
+    const float2 v = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(s)));
+    a = v.x;
+    b = v.y;
+  } else {
+    a = __bfloat162float(__ldg(s));
+    b = __bfloat162float(__ldg(s + 1));
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(FWD_TX * FWD_TY)
-    warp_fwd_kernel(const float* __restrict__ img, const float* __restrict__ grid,
+    warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ grid,
                     float* __restrict__ out, int C, int H, int W, int Ho, int Wo, bool vec) {
   const int b = blockIdx.z;
   const int ox = blockIdx.x * FWD_TW + threadIdx.x * FWD_PX;
@@ -143,14 +181,16 @@ __global__ void __launch_bounds__(FWD_TX * FWD_TY)
     wy[k] = cy.w;
   }
 
-  const float* src = img + b * C * HW;
+  const T* src = img + b * C * HW;
   float* dst = out + b * C * P + at;
   for (int c = 0; c < C; ++c) {
     float v[FWD_PX];
 #pragma unroll
     for (int k = 0; k < FWD_PX; ++k) {
-      const float* s = src + c * HW + off[k];
-      const float v00 = __ldg(s), v01 = __ldg(s + 1), v10 = __ldg(s + W), v11 = __ldg(s + W + 1);
+      const T* s = src + c * HW + off[k];
+      float v00, v01, v10, v11;
+      load_pair(s, v00, v01);
+      load_pair(s + W, v10, v11);
       const float top = v00 + (v01 - v00) * wx[k];
       const float bot = v10 + (v11 - v10) * wx[k];
       v[k] = top + (bot - top) * wy[k];
@@ -183,8 +223,9 @@ __device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
   }
 }
 
+template <typename T>
 struct BwdArgs {
-  const float* __restrict__ img;
+  const T* __restrict__ img;
   const float* __restrict__ grid;
   const float* __restrict__ g_out;
   float* __restrict__ d_grid;
@@ -200,8 +241,8 @@ struct BwdPixels {
 };
 
 // The gradient of N channels from plane0 at a thread's pixels.
-template <int N, bool kVec>
-__device__ __forceinline__ void load_grad(float (&go)[N][BWD_PX], const BwdArgs& a, const BwdPixels& px,
+template <int N, bool kVec, typename T>
+__device__ __forceinline__ void load_grad(float (&go)[N][BWD_PX], const BwdArgs<T>& a, const BwdPixels& px,
                                           size_t plane0) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -218,8 +259,8 @@ __device__ __forceinline__ void load_grad(float (&go)[N][BWD_PX], const BwdArgs&
 // N channels from plane0 of a thread's pixels, with their gradient go: every
 // tap load first, then the arithmetic, so that the loads share their trips
 // to memory. Adds into the pixels' coordinate gradients dwx, dwy.
-template <int N, bool kImageGrad>
-__device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPixels& px, size_t plane0,
+template <int N, bool kImageGrad, typename T>
+__device__ __forceinline__ void warp_bwd_channels(const BwdArgs<T>& a, const BwdPixels& px, size_t plane0,
                                                   const float (&go)[N][BWD_PX], const int (&off)[BWD_PX],
                                                   const Coord (&cx)[BWD_PX], const Coord (&cy)[BWD_PX],
                                                   float (&dwx)[BWD_PX], float (&dwy)[BWD_PX]) {
@@ -228,11 +269,9 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPix
   for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int k = 0; k < BWD_PX; ++k) {
-      const float* s = a.img + (plane0 + i) * px.HW + off[k];
-      v[i][k][0] = __ldg(s);
-      v[i][k][1] = __ldg(s + 1);
-      v[i][k][2] = __ldg(s + a.W);
-      v[i][k][3] = __ldg(s + a.W + 1);
+      const T* s = a.img + (plane0 + i) * px.HW + off[k];
+      load_pair(s, v[i][k][0], v[i][k][1]);
+      load_pair(s + a.W, v[i][k][2], v[i][k][3]);
     }
   }
 #pragma unroll
@@ -262,9 +301,9 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs& a, const BwdPix
 // kC: the channel count, or 0 for one given at run time. kVec: the grid,
 // gradient and d_grid are aligned for the vector accesses and Wo is even, so
 // a thread's pixels are both inside the row.
-template <int kC, bool kImageGrad, bool kVec>
+template <typename T, int kC, bool kImageGrad, bool kVec>
 __global__ void __launch_bounds__(BWD_TX * BWD_TY, kImageGrad ? 1 : BWD_BLOCKS_PER_SM)
-    warp_bwd_kernel(BwdArgs a) {
+    warp_bwd_kernel(BwdArgs<T> a) {
   const int b = blockIdx.z;
   const int ox = blockIdx.x * BWD_TW + threadIdx.x * BWD_PX;
   const int oy = blockIdx.y * BWD_TY + threadIdx.y;
@@ -326,43 +365,67 @@ __global__ void __launch_bounds__(BWD_TX * BWD_TY, kImageGrad ? 1 : BWD_BLOCKS_P
   }
 }
 
-template <int kC>
-void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+template <typename T, int kC>
+void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   const dim3 blocks((a.Wo + BWD_TW - 1) / BWD_TW, (a.Ho + BWD_TY - 1) / BWD_TY, a.B);
   const dim3 threads(BWD_TX, BWD_TY);
   const bool vec = a.Wo % BWD_PX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.d_grid) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.g_out) % (4 * BWD_PX) == 0;
   if (a.d_img != nullptr) {
-    if (vec) warp_bwd_kernel<kC, true, true><<<blocks, threads, 0, stream>>>(a);
-    else warp_bwd_kernel<kC, true, false><<<blocks, threads, 0, stream>>>(a);
+    if (vec) warp_bwd_kernel<T, kC, true, true><<<blocks, threads, 0, stream>>>(a);
+    else warp_bwd_kernel<T, kC, true, false><<<blocks, threads, 0, stream>>>(a);
   } else {
-    if (vec) warp_bwd_kernel<kC, false, true><<<blocks, threads, 0, stream>>>(a);
-    else warp_bwd_kernel<kC, false, false><<<blocks, threads, 0, stream>>>(a);
+    if (vec) warp_bwd_kernel<T, kC, false, true><<<blocks, threads, 0, stream>>>(a);
+    else warp_bwd_kernel<T, kC, false, false><<<blocks, threads, 0, stream>>>(a);
   }
+}
+
+template <typename T>
+int warp_fwd_impl(const T* img, const float* grid, float* out, int B, int C, int H, int W, int Ho, int Wo,
+                  void* stream) {
+  if (B > 0 && Ho > 0 && Wo > 0) {
+    const bool vec = Wo % 2 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
+    const dim3 blocks((Wo + FWD_TW - 1) / FWD_TW, (Ho + FWD_TY - 1) / FWD_TY, B);
+    warp_fwd_kernel<T><<<blocks, dim3(FWD_TX, FWD_TY), 0, static_cast<cudaStream_t>(stream)>>>(
+        img, grid, out, C, H, W, Ho, Wo, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int warp_bwd_impl(const T* img, const float* grid, const float* g_out, float* d_grid, float* d_img, int B, int C,
+                  int H, int W, int Ho, int Wo, void* stream) {
+  if (B > 0 && Ho > 0 && Wo > 0) {
+    const BwdArgs<T> a{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo};
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (C == 3) launch_bwd<T, 3>(a, s);
+    else launch_bwd<T, 0>(a, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int warp_fwd(const float* img, const float* grid, float* out, int B, int C, int H,
                         int W, int Ho, int Wo, void* stream) {
-  if (B > 0 && Ho > 0 && Wo > 0) {
-    const bool vec = Wo % 2 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 8 == 0;
-    const dim3 blocks((Wo + FWD_TW - 1) / FWD_TW, (Ho + FWD_TY - 1) / FWD_TY, B);
-    warp_fwd_kernel<<<blocks, dim3(FWD_TX, FWD_TY), 0, static_cast<cudaStream_t>(stream)>>>(
-        img, grid, out, C, H, W, Ho, Wo, vec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return warp_fwd_impl(img, grid, out, B, C, H, W, Ho, Wo, stream);
 }
 
 extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out, float* d_grid,
                         float* d_img, int B, int C, int H, int W, int Ho, int Wo, void* stream) {
-  if (B > 0 && Ho > 0 && Wo > 0) {
-    const BwdArgs a{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo};
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (C == 3) launch_bwd<3>(a, s);
-    else launch_bwd<0>(a, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return warp_bwd_impl(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
+}
+
+// The bfloat16-image instances; d_img (null unless the image needs a
+// gradient) is a zeroed float32 buffer of the image's shape.
+extern "C" int warp_fwd_bf16(const __nv_bfloat16* img, const float* grid, float* out, int B, int C, int H,
+                             int W, int Ho, int Wo, void* stream) {
+  return warp_fwd_impl(img, grid, out, B, C, H, W, Ho, Wo, stream);
+}
+
+extern "C" int warp_bwd_bf16(const __nv_bfloat16* img, const float* grid, const float* g_out, float* d_grid,
+                             float* d_img, int B, int C, int H, int W, int Ho, int Wo, void* stream) {
+  return warp_bwd_impl(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
 }

@@ -74,15 +74,17 @@ def build_all() -> list:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed, with
     ``signatures`` = {function: argtypes} declared (every function returns
-    its ``cudaGetLastError()`` as an int)."""
-    lib = _libs.get(name)
+    its ``cudaGetLastError()`` as an int). A later call may declare more of
+    the library's functions: each is declared at its first call."""
+    lib, declared = _libs.get(name, (None, None))
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        lib, declared = ctypes.CDLL(str(_lib_path(name))), set()
+        _libs[name] = (lib, declared)
+    for fn in signatures.keys() - declared:
+        getattr(lib, fn).argtypes = signatures[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+        declared.add(fn)
     return lib
 
 

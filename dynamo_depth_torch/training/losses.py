@@ -10,6 +10,11 @@ Trainer.py:327-402.
 
 Layouts: images and per-pixel maps are (B, C, H, W); sample grids are
 (B, H, W, 2) and point clouds / flows (B, H*W, 3), as in the JAX package.
+
+The warp's source image has the dtype ``cfg.image_dtype`` picks
+(``config.warp_image_dtype``, the JAX package's ``_image_dtype``): bfloat16
+taps, a float32 lerp and output. The photometric error stays float32
+whatever it says, as in the JAX package (``losses.py:58-68``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from dynamo_depth_torch.config import warp_image_dtype
 from dynamo_depth_torch.ops.geometry import backproject, depth_to_disp, disp_to_depth, project, unit_rays
 from dynamo_depth_torch.ops.ground_plane import ground_plane_fit
 from dynamo_depth_torch.ops.photometric import reprojection_loss, smooth_loss
@@ -48,12 +54,19 @@ def loss_coefficients(cfg, step_in_phase, steps_per_epoch) -> Dict[str, float]:
     return coefs
 
 
-def view_synthesis(cfg, inputs, outputs, *, bool_CmpFlow, bool_MotMask, automask):
+def view_synthesis(cfg, inputs, outputs, *, bool_CmpFlow, bool_MotMask, automask, shards=1):
     """Warped reconstructions per (scale, source frame) (Trainer.py:215-287).
-    Mutates and returns ``outputs``."""
+    Mutates and returns ``outputs``. Each source frame is cast once to the
+    dtype ``warp_image_dtype(cfg, image, shards)`` picks, and warped at every
+    scale; ``shards`` is 1 in the training step and the world size in
+    validation and the visualisation (``warp_image_dtype`` says why)."""
     H, W = cfg.height, cfg.width
     K = inputs[("K", 0)]
     inv_K = inputs[("inv_K", 0)]
+    sources = {}
+    for f in cfg.frame_ids[1:]:
+        image = inputs[("color", f, 0)]
+        sources[f] = image.to(warp_image_dtype(cfg, image, shards))
 
     for scale in cfg.scales:
         disp_native = outputs[("disp", 0, scale)]
@@ -96,7 +109,7 @@ def view_synthesis(cfg, inputs, outputs, *, bool_CmpFlow, bool_MotMask, automask
                 independ_flow = torch.zeros_like(ego_flow)
 
             outputs[("sample", f, scale)] = sample
-            outputs[("color", f, scale)] = grid_sample(inputs[("color", f, 0)], sample)
+            outputs[("color", f, scale)] = grid_sample(sources[f], sample)
             outputs[("ego_flow", f, scale)] = ego_flow
             outputs[("independ_flow", f, scale)] = _nchw(independ_flow, B, H, W)
             outputs[("residual_flow", f, scale)] = resize_bilinear(_nchw(residual_flow, B, H, W), (h, w))

@@ -299,10 +299,12 @@ class Trainer:
             outputs = net(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
         return {k: v.float() if v.is_floating_point() else v for k, v in outputs.items()}
 
-    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int, net=None):
+    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int, net=None, shards=1):
+        """The model's outputs and the losses; ``shards`` as
+        :func:`view_synthesis` takes it (the world size in validation)."""
         outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator, net)
         view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
-                       automask=self.automask)
+                       automask=self.automask, shards=shards)
         losses = compute_losses(
             self.cfg, inputs, outputs, generator,
             bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, automask=self.automask,
@@ -422,8 +424,10 @@ class Trainer:
         self.model.eval()
         try:
             with torch.no_grad():
+                # The warp's dtype knee counts the global batch, as the JAX
+                # package's validation step (jit over the global batch) does.
                 outputs, losses = self._forward_losses(
-                    self.process_inputs_device(self.to_device(batch)), self.generator, self.step)
+                    self.process_inputs_device(self.to_device(batch)), self.generator, self.step, shards=self.world)
                 losses = self._average_losses(losses)
                 if "depth_gt" in batch:
                     losses.update(self.depth_metrics(batch, outputs))
@@ -605,8 +609,9 @@ class Trainer:
         try:
             with torch.no_grad():
                 outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask)
+                # The knee counts the global batch, as the JAX ``vis_step``.
                 view_synthesis(cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
-                               automask=self.automask)
+                               automask=self.automask, shards=self.world)
         finally:
             for m, training in modes.items():
                 m.training = training

@@ -25,7 +25,7 @@ import bench
 from dynamo_depth_torch.bench import throughput
 from torch_test_threads import two_torch_threads  # noqa: F401
 
-KERNELS = ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd")
+KERNELS = ("warp_fwd", "warp_bwd", "warp_fwd_bf16", "warp_bwd_bf16", "photometric_fwd", "photometric_bwd")
 
 
 @pytest.fixture(autouse=True)

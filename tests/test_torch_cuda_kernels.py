@@ -24,6 +24,11 @@ At exact ties the kernels take the JAX package's subgradients, as the plain
 versions do: K2 passes half the coordinate gradient where a grid entry is
 exactly -1 or 1, K4 the L1 subgradient of ``jnp.abs`` where pred equals
 target. Both are held here on inputs with such ties.
+
+K1's and K2's bfloat16-image instances are held against the plain version
+on the same bfloat16 image, on such shapes, at the b8 step's size on the
+ego-motion grid, on grid entries exactly on the border, and with the image
+2 bytes off 4-byte alignment.
 """
 
 import pytest
@@ -106,6 +111,51 @@ def test_warp_kernels_match_plain(dev, shape, kind, border):
             torch.testing.assert_close(d_img_k, d_img_p, rtol=0, atol=_scale_tol(d_img_p, 1e-5))
 
 
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 3, 9, 13, 7, 11), "uniform"), ((1, 3, 2, 2, 5, 3), "uniform"), ((2, 1, 37, 70, 37, 70), "uniform"),
+    ((1, 4, 8, 32, 16, 64), "uniform"), ((1, 3, 9, 40, 5, 33), "on_border"), ((2, 3, 17, 67, 17, 67), "on_border"),
+    ((8, 3, 192, 640, 192, 640), "ego"), ((2, 3, 16, 48, 8, 64), "misaligned"),
+])
+def test_bf16_warp_kernels_match_plain(dev, shape, kind):
+    """The bfloat16-image instances against the plain version on the same
+    bfloat16 image (widened to float32): odd widths put every other tap
+    row's pair off 4-byte alignment, and ``misaligned`` starts the image 2
+    bytes past it."""
+    B, C, H, W, Ho, Wo = shape
+    g = torch.Generator(device=dev).manual_seed(4)
+    img = torch.rand(B, C, H, W, device=dev, generator=g).bfloat16()
+    if kind == "misaligned":
+        buf = torch.empty(img.numel() + 1, device=dev, dtype=torch.bfloat16)
+        img = buf[1:].view_as(img).copy_(img)
+        assert img.data_ptr() % 4 == 2
+    if kind == "ego":
+        grid = ego_motion_grid(B, Ho, Wo, seed=0).to(dev)
+    else:
+        grid = torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2
+        if kind == "on_border":
+            grid = grid.clamp(-1.0, 1.0)
+    cot = torch.randn(B, C, Ho, Wo, device=dev, generator=g)
+
+    img_r, grid_r = img.clone().requires_grad_(), grid.clone().requires_grad_()
+    reset_launch_counts()
+    out = warp.grid_sample(img_r, grid_r)
+    d_img, d_grid = torch.autograd.grad(out, (img_r, grid_r), cot)
+    counts = launch_counts()
+    assert (counts["warp_fwd_bf16"], counts["warp_bwd_bf16"], counts["warp_fwd"], counts["warp_bwd"]) == (1, 1, 0, 0)
+    assert out.dtype == torch.float32 and d_grid.dtype == torch.float32 and d_img.dtype == torch.bfloat16
+    img_p, grid_p = img.clone().requires_grad_(), grid.clone().requires_grad_()
+    out_p = warp.grid_sample_plain(img_p, grid_p)
+    d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_p, grid_p), cot)
+    # The same float32 arithmetic after the taps as the float32 instances.
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d_grid, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+    # d_image: float32 sums in another order, each rounded once to bfloat16
+    # (8 bits of mantissa): at most one bfloat16 step apart.
+    torch.testing.assert_close(d_img.float(), d_img_p.float(), rtol=0, atol=_scale_tol(d_img_p.float(), 2 ** -7))
+    _, d_grid_k = warp.warp_bwd(img, grid, cot, False)
+    torch.testing.assert_close(d_grid_k, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+
+
 def _grid(kind, B, H, W, Ho, Wo, dev, g):
     """A sample grid over an (H, W) image: ``near_identity`` (each output
     pixel samples within ~1.5 px of the same place, rescaled to the source),
@@ -171,10 +221,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.rand(1, 3, 6, 8, device=dev)
     with pytest.raises(ValueError):
         warp.warp_fwd(x.double(), torch.rand(1, 5, 7, 2, device=dev))
-    # bfloat16 too: the bfloat16 step casts the networks' outputs to float32
-    # before view synthesis, and the wrappers do not cast.
+    # The warp takes a float32 or bfloat16 image, and float32 grids and
+    # gradients only; the photometric kernels float32 only. The wrappers do
+    # not cast.
+    with pytest.raises(ValueError, match="float16"):
+        warp.warp_fwd(x.half(), torch.rand(1, 5, 7, 2, device=dev))
     with pytest.raises(ValueError, match="float32"):
-        warp.warp_fwd(x.bfloat16(), torch.rand(1, 5, 7, 2, device=dev))
+        warp.warp_fwd(x.bfloat16(), torch.rand(1, 5, 7, 2, device=dev).bfloat16())
     with pytest.raises(ValueError, match="float32"):
         warp.warp_bwd(x, torch.rand(1, 5, 7, 2, device=dev), torch.rand(1, 3, 5, 7, device=dev).bfloat16(), True)
     with pytest.raises(ValueError, match="float32"):

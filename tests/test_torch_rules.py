@@ -132,7 +132,8 @@ def test_cpu_tensors_take_the_plain_path():
     warp.grid_sample(img, grid).sum().backward()
     pred = torch.rand(1, 3, 6, 8, requires_grad=True)
     photometric.reprojection_loss(pred, torch.rand(1, 3, 6, 8)).sum().backward()
-    assert launch_counts() == {"warp_fwd": 0, "warp_bwd": 0, "photometric_fwd": 0, "photometric_bwd": 0}
+    assert launch_counts() == {"warp_fwd": 0, "warp_bwd": 0, "warp_fwd_bf16": 0, "warp_bwd_bf16": 0,
+                               "photometric_fwd": 0, "photometric_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
