@@ -145,10 +145,13 @@ Phases (any failure exits non-zero, nothing is caught):
    the LiteMono ``fine_tune`` step with float32 networks, timed as phase 6
    with 6 launches per step of each bfloat16 instance and none of the
    float32 warp instances, profiled, and one more step whose six warp
-   inputs are captured; (a) the instances against the plain version on the
-   bfloat16 image (a uniform grid, the ego-motion grid, a grid at the
-   clamp's ties and the six step grids), beside the float32 instances on
-   the rounded image; (b) the step on the card against the same step on the
+   inputs are captured and saved to
+   ``build/chip_smoke/step_warp_inputs_b8.pt`` (for ``bench/kernel_ab.py
+   --step-inputs ... --cold`` and ``bench/warp_bf16_variants.py``); (a)
+   the instances against the plain version on the bfloat16 image (a
+   uniform grid, the ego-motion grid, a grid at the clamp's ties and the
+   six step grids), and bit-equal to the float32 instances on the rounded
+   image; (b) the step on the card against the same step on the
    CPU, phase 5's tolerances; (c) device ms, warm and cold, beside the float32
    instances', the plain version's, the library's (``F.grid_sample`` of the
    image widened to float32, the cast included) and the bytes bound.
@@ -1820,9 +1823,10 @@ B15 = 8  # phase 15: the throughput CLI's b8 leg, 983,040 px: bfloat16 warp oper
 def warp_vs_plain_bf16(img, grids, g_warp):
     """15a: K1/K2's bfloat16 instances against the plain version on the same
     bfloat16 image (widened to float32) on each of ``grids`` ({label: grid}):
-    the output, d_grid (K2 with and without d_image) and d_image; beside the
-    float32 instances on the rounded image. Returns the largest error of
-    the output ("warp_fwd_bf16") and of d_grid ("warp_bwd_bf16")."""
+    the output, d_grid (K2 with and without d_image) and d_image; and the
+    output and d_grid bit-equal to the float32 instances' on the rounded
+    image. Returns the largest error of the output ("warp_fwd_bf16") and of
+    d_grid ("warp_bwd_bf16")."""
     import torch
 
     from dynamo_depth_torch.ops.kernels import warp
@@ -1852,8 +1856,13 @@ def warp_vs_plain_bf16(img, grids, g_warp):
         # bfloat16: one bfloat16 step (2^-7 relative) apart at most.
         check(f"warp_bwd_bf16 d_image vs plain ({label})", max_err(d_img_k.float(), d_img_p.float()),
               2**-7 * max(1.0, float(d_img_p.float().abs().max())))
-        print(f"    the float32 instances on the rounded image: output {max_err(out_k, out_32):.3e}, "
-              f"d_grid {max_err(d_grid_k2, d_grid_32):.3e} from the bfloat16 instances'")
+        # The same float32 arithmetic after the taps as the float32
+        # instances': bit-equal to theirs on the rounded image.
+        if not (torch.equal(out_k, out_32) and torch.equal(d_grid_k2, d_grid_32)):
+            raise SystemExit(f"15a ({label}): the bfloat16 instances are not bit-equal to the float32 ones on the "
+                             f"rounded image: output {max_err(out_k, out_32):.3e}, d_grid "
+                             f"{max_err(d_grid_k2, d_grid_32):.3e}")
+        print(f"    ({label}) bit-equal to the float32 instances on the rounded image")
     return errs
 
 
@@ -1863,9 +1872,10 @@ def run_phase15(smi, mem_rate, f32_rate):
     step at batch 8, float32 networks: 2 warm-up and 5 timed steps with the
     launch counts set to 0 just before and read just after (6 of each
     bfloat16 instance per step, none of the float32 warp instances), one
-    profiled step, one more whose six warp inputs are captured; (a) the
-    instances against the plain version on a uniform grid, the ego-motion
-    grid, a grid at the clamp's ties and the six step grids; (b) one step
+    profiled step, one more whose six warp inputs are captured and saved;
+    (a) the instances against the plain version on a uniform grid, the
+    ego-motion grid, a grid at the clamp's ties and the six step grids, and
+    bit-equal to the float32 instances on the rounded image; (b) one step
     on the card against the CPU from the same weights, phase 5's
     tolerances; (c) device ms of the instances alone, warm and cold, beside
     the float32 instances' on the rounded image, the plain version's, the
@@ -1908,6 +1918,9 @@ def run_phase15(smi, mem_rate, f32_rate):
     if len(captured) != 6 or any(im.dtype != torch.bfloat16 or im.shape != (B15, C, H, W) for im, _ in captured):
         raise SystemExit(f"15b: captured {[(im.dtype, tuple(im.shape)) for im, _ in captured]}, expected 6 bfloat16 "
                          f"images of {(B15, C, H, W)}")
+    saved = Path(__file__).resolve().parent / "build" / "chip_smoke" / "step_warp_inputs_b8.pt"
+    saved.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"images": [im.cpu() for im, _ in captured], "grids": [gr.cpu() for _, gr in captured]}, saved)
     del trainer, batch
     torch.cuda.empty_cache()
 

@@ -2,7 +2,7 @@
 
     git archive <commit> | tar -x -C build/other      # any git-ignored directory
     python3 -m dynamo_depth_torch.bench.kernel_ab --other build/other \
-        [--step-inputs build/chip_smoke/step_warp_inputs.pt]
+        [--step-inputs build/chip_smoke/step_warp_inputs.pt] [--cold]
 
 Both checkouts' ``csrc/*.cu`` export the same C functions (``warp_fwd``,
 ``warp_bwd``, ``photometric_fwd``, ``photometric_bwd``), declared once in
@@ -17,8 +17,11 @@ pred equals target), reports how far the two disagree, and times each in
 turns (other, this, this, other) with
 ``bench/timing.py``: device time per call from ``torch.profiler``, and the
 median of CUDA events around one call. ``--step-inputs`` adds the warp's
-inputs of one main-path step, as ``chip_smoke.py`` phase 6 saves them (six
-images and grids): K1 and K2 run on each, with the same random gradient.
+inputs of one step, as ``chip_smoke.py`` phase 6 saves them (six images and
+grids at B=3) or phase 15 (bfloat16 images at B=8,
+``step_warp_inputs_b8.pt``): K1 and K2 run on each, with one random
+gradient per batch size. ``--cold`` times every call after a 64 MB
+overwrite, as the step's kernels find their inputs in device memory.
 Where both checkouts export K1's and K2's bfloat16-image instances
 (``warp_fwd_bf16``, ``warp_bwd_bf16``), those run too, on every warp input
 with the image rounded to bfloat16. Prints the card, one line per kernel
@@ -79,17 +82,19 @@ def _launchers(builder, t, bf16):
                    ("on-border grid", t["img"], t["on_border"])]
     warp_inputs += [(f"step grid {i}", im, gr) for i, (im, gr) in enumerate(t["step"])]
     for label, img32, grid in warp_inputs:
+        n, c, h, w = img32.shape  # the step's inputs may have another batch
+        g_warp = t["g_warp"][n]
         for suffix, img in (("", img32),) + ((("_bf16", img32.bfloat16()),) if bf16 else ()):
             fwd, bwd = getattr(warp, "warp_fwd" + suffix), getattr(warp, "warp_bwd" + suffix)
-            o = torch.empty(B, C, H, W, device="cuda")
+            o = torch.empty(n, c, h, w, device="cuda")
             d = torch.empty_like(grid)
             if label != "on-border grid":
                 out[("warp_fwd" + suffix, label)] = (
-                    lambda o=o, img=img, grid=grid, fwd=fwd: build.check(fwd(img.data_ptr(), grid.data_ptr(), o.data_ptr(), B, C, H, W, H, W, s), "warp_fwd"),
+                    lambda o=o, img=img, grid=grid, fwd=fwd, n=n, c=c, h=h, w=w: build.check(fwd(img.data_ptr(), grid.data_ptr(), o.data_ptr(), n, c, h, w, h, w, s), "warp_fwd"),
                     o,
                 )
             out[("warp_bwd" + suffix, label)] = (
-                lambda d=d, img=img, grid=grid, bwd=bwd: build.check(bwd(img.data_ptr(), grid.data_ptr(), t["g_warp"].data_ptr(), d.data_ptr(), None, B, C, H, W, H, W, s), "warp_bwd"),
+                lambda d=d, img=img, grid=grid, bwd=bwd, n=n, c=c, h=h, w=w, g=g_warp: build.check(bwd(img.data_ptr(), grid.data_ptr(), g.data_ptr(), d.data_ptr(), None, n, c, h, w, h, w, s), "warp_bwd"),
                 d,
             )
     o = torch.empty(B, 1, H, W, device="cuda")
@@ -110,7 +115,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True, help="root of the other checkout")
     ap.add_argument("--calls", type=int, default=TIMED_RUNS, help="calls per timing")
-    ap.add_argument("--step-inputs", type=Path, help="the warp's inputs of one step, saved by chip_smoke.py phase 6")
+    ap.add_argument("--step-inputs", type=Path,
+                    help="the warp's inputs of one step, saved by chip_smoke.py phase 6 (B=3) or 15 (B=8)")
+    ap.add_argument("--cold", action="store_true",
+                    help="overwrite 64 MB before each timed call, as a kernel in the step finds its inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -123,7 +131,7 @@ def main(argv=None):
     t = {
         "img": torch.rand(B, C, H, W, device="cuda", generator=gen),
         "grid": torch.rand(B, H, W, 2, device="cuda", generator=gen) * 2.2 - 1.1,
-        "g_warp": torch.randn(B, C, H, W, device="cuda", generator=gen),
+        "g_warp": {B: torch.randn(B, C, H, W, device="cuda", generator=gen)},
         "pred": torch.rand(B, C, H, W, device="cuda", generator=gen),
         "target": torch.rand(B, C, H, W, device="cuda", generator=gen),
         "g_photo": torch.randn(B, 1, H, W, device="cuda", generator=gen),
@@ -133,9 +141,13 @@ def main(argv=None):
     t["step"] = []
     if args.step_inputs is not None:
         saved = torch.load(args.step_inputs, map_location="cuda")
-        t["step"] = list(zip(saved["images"], saved["grids"]))
-        if any(im.shape != (B, C, H, W) or gr.shape != (B, H, W, 2) for im, gr in t["step"]):
-            raise SystemExit(f"{args.step_inputs}: the step's warp inputs are not of shape {(B, C, H, W)}")
+        # A batch-8 step's images are bfloat16: the float32 instances run on
+        # them widened, the bfloat16 ones on them as they are.
+        t["step"] = [(im.float(), gr) for im, gr in zip(saved["images"], saved["grids"])]
+        n = t["step"][0][0].shape[0]
+        if any(im.shape != (n, C, H, W) or gr.shape != (n, H, W, 2) for im, gr in t["step"]):
+            raise SystemExit(f"{args.step_inputs}: the step's warp inputs are not of shape {(n, C, H, W)}")
+        t["g_warp"].setdefault(n, torch.randn(n, C, H, W, device="cuda", generator=gen))
     other = _other_build(args.other.resolve())
     bf16 = _exports_bf16(other) and _exports_bf16(build)
     sets = {"other": _launchers(other, t, bf16), "this": _launchers(build, t, bf16)}
@@ -150,11 +162,11 @@ def main(argv=None):
     times = {key: {"other": [], "this": []} for key in sets["this"]}
     for side in ("other", "this", "this", "other"):
         for key, (fn, _) in sets[side].items():
-            times[key][side].append((device_ms(fn, args.calls), median_ms(fn, args.calls)))
+            times[key][side].append((device_ms(fn, args.calls, cold=args.cold), median_ms(fn, args.calls)))
 
     rows = []
-    print(f"device ms per call (profiler; events around one call in brackets), B={B} C={C} {H}x{W}, "
-          f"turns other/this/this/other, on {smi}:")
+    print(f"device ms per call (profiler{', cold L2' if args.cold else ''}; events around one call in brackets), "
+          f"B={B} C={C} {H}x{W} (the step's inputs: their own batch), turns other/this/this/other, on {smi}:")
     for key, by in times.items():
         row = {"kernel": key[0], "inputs": key[1], "max_abs_diff": diffs[key]}
         for side in ("other", "this"):
@@ -177,7 +189,7 @@ def main(argv=None):
             summary[k] = {side: sum(r[f"{side}_ms"] for r in step_rows) / len(step_rows) for side in ("other", "this")}
             print(f"  {k} [mean of {len(step_rows)} step grids]: other {summary[k]['other']:.5f} | "
                   f"this {summary[k]['this']:.5f}")
-    print(json.dumps({"card": smi, "kernel_ab": rows, "step_grid_means": summary}))
+    print(json.dumps({"card": smi, "cold": args.cold, "kernel_ab": rows, "step_grid_means": summary}))
     return 0
 
 

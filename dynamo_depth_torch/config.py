@@ -134,8 +134,10 @@ class DynamoConfig:
     # --- Fields the JAX package added (kept so its configs parse) ---
     # Number of data-parallel shards (the JAX package's mesh size).
     num_devices: int = 0
-    # Compute dtype for network forward/backward ("bfloat16" or "float32").
-    # Params and optimizer state are always float32. The port runs float32.
+    # Compute dtype for network forward/backward ("bfloat16" or "float32"),
+    # both ported: under "bfloat16" the networks run in torch.autocast and
+    # their outputs are cast to float32 (Trainer._model_outputs). Params and
+    # optimizer state are always float32.
     compute_dtype: str = "float32"
     # Dtype of the warp's source image: "float32", "bfloat16", or "auto"
     # (bfloat16 from WARP_BF16_PIXELS pixels up; warp_image_dtype).

@@ -10,7 +10,10 @@ describes; without that environment the program is one process and every
 function here is a no-op. The trainer averages gradients through
 ``DistributedDataParallel`` and BatchNorm statistics and losses through
 :func:`all_reduce_mean`, which is the JAX package's ``pmean`` over its data
-axis. ``all_reduce`` and ``broadcast`` run on the tensors where they lie,
+axis; validation gathers the ranks' rows (:func:`all_gather_rows`) and
+broadcasts rank 0's scores (:func:`broadcast_object`), and the
+visualisation takes its maxima over the ranks (:func:`all_reduce_max`).
+``all_reduce`` and ``broadcast`` run on the tensors where they lie,
 since gloo also runs them on CUDA tensors (it has no ``ReduceOp.AVG``);
 :func:`all_gather_rows` gathers on the backend's own device.
 """
@@ -167,6 +170,25 @@ def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     if world_size() > 1:
         _coalesced(tensors, dist.all_reduce)
     return tensors
+
+
+def all_reduce_max(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The largest value of each entry over the ranks, in place: one
+    ``all_reduce`` with ``MAX`` per (dtype, device) of the flattened
+    tensors. Returns ``tensors``."""
+    if world_size() > 1:
+        _coalesced(tensors, lambda flat: dist.all_reduce(flat, op=dist.ReduceOp.MAX))
+    return tensors
+
+
+def broadcast_object(obj):
+    """Rank 0's ``obj`` (picklable) on every rank; ``obj`` itself for one
+    process (the other ranks' ``obj`` is not read)."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, device=_comm_device())
+    return box[0]
 
 
 def broadcast_state(module: torch.nn.Module) -> None:

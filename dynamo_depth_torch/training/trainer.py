@@ -141,6 +141,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + (self.rank << 32))
         self._copy_stream = None
         self._wandb = None  # the wandb module once setup_logging has started a run
+        self._vis_ranks = False  # under a process group: rank 0 visualises (setup_logging)
         self.g_step = 0
         # One entry per log_time / log_scalars call: what a run reports.
         self.history: List[Dict] = []
@@ -299,12 +300,11 @@ class Trainer:
             outputs = net(inputs, bool_CmpFlow=bool_CmpFlow, bool_MotMask=bool_MotMask, generator=generator)
         return {k: v.float() if v.is_floating_point() else v for k, v in outputs.items()}
 
-    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int, net=None, shards=1):
-        """The model's outputs and the losses; ``shards`` as
-        :func:`view_synthesis` takes it (the world size in validation)."""
+    def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int, net=None):
+        """The model's outputs and the losses of the rows of ``inputs``."""
         outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator, net)
         view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
-                       automask=self.automask, shards=shards)
+                       automask=self.automask)
         losses = compute_losses(
             self.cfg, inputs, outputs, generator,
             bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, automask=self.automask,
@@ -407,9 +407,18 @@ class Trainer:
     def val(self):
         """Score one validation batch for training monitoring (Trainer.py:175-195;
         val is never used for model selection): eval mode, no gradients, the
-        losses and, where the batch has LiDAR points, the depth metrics. Under
-        a process group each rank scores its shard of the global batch, and
-        both are the global batch's means, the same on every rank."""
+        losses and, where the batch has LiDAR points, the depth metrics.
+
+        Under a process group the ranks' rows are gathered and rank 0 scores
+        the global batch, as the JAX package's validation step (one jit over
+        the global batch) does, so that the terms that couple the rows see
+        all of them: m_sparsity's static threshold ``mean(disp_mag)``, its
+        normaliser and ``all_have_static``, the RANSAC pairing under
+        ``gp_score_mode="reference"``, and the warp's dtype knee. In eval
+        mode a row's outputs do not depend on the other rows. Rank 0 draws
+        the RANSAC hypotheses and the automask noise from its own generator,
+        as one process does; the other ranks draw nothing and log the scores
+        rank 0 broadcasts, so every rank logs the same values."""
         try:
             if self._val_iter is None:
                 self._val_loader = self._make_val_loader()
@@ -421,35 +430,48 @@ class Trainer:
                 batch = next(self._val_iter)
         except (FileNotFoundError, StopIteration):
             return  # no validation data
-        self.model.eval()
-        try:
-            with torch.no_grad():
-                # The warp's dtype knee counts the global batch, as the JAX
-                # package's validation step (jit over the global batch) does.
-                outputs, losses = self._forward_losses(
-                    self.process_inputs_device(self.to_device(batch)), self.generator, self.step, shards=self.world)
-                losses = self._average_losses(losses)
-                if "depth_gt" in batch:
-                    losses.update(self.depth_metrics(batch, outputs))
-        finally:
-            self.model.train()
-        self.log_scalars("val", losses)
+        if self.world > 1:
+            batch = self._gather_rows(batch)
+        scores = None
+        if pdist.is_main_process():
+            self.model.eval()
+            try:
+                with torch.no_grad():
+                    outputs, losses = self._forward_losses(
+                        self.process_inputs_device(self.to_device(batch)), self.generator, self.step)
+                    scores = {k: v.detach() for k, v in losses.items()}
+                    if "depth_gt" in batch:
+                        scores.update(self.depth_metrics(batch, outputs, over_ranks=False))
+            finally:
+                self.model.train()
+        if self.world > 1:
+            shared = pdist.broadcast_object(None if scores is None else {k: float(v) for k, v in scores.items()})
+            scores = {k: torch.tensor(v) for k, v in shared.items()}
+        self.log_scalars("val", scores)
 
-    def depth_metrics(self, inputs: Dict, outputs: Dict, mask_pts=None, labels=None, sample_weight=None) -> Dict:
+    def _gather_rows(self, batch: Dict) -> Dict:
+        """Every rank's rows of a host batch in rank order, the global batch
+        (numpy): the keys the step reads and the depth metrics' LiDAR keys."""
+        keys = sorted((k for k in batch if k not in _HOST_ONLY or k in ("depth_gt", "depth_valid", "gt_dim")), key=str)
+        return {k: pdist.all_gather_rows(torch.as_tensor(np.asarray(batch[k]))).numpy() for k in keys}
+
+    def depth_metrics(self, inputs: Dict, outputs: Dict, mask_pts=None, labels=None, sample_weight=None,
+                      over_ranks: bool = True) -> Dict:
         """Sparse-point depth metrics of ``outputs[('disp_scaled', 0, 0)]``
         against the host batch's LiDAR points, on the device; with ``labels``,
         also per mask label of ``mask_pts`` (the labels at the points), and
         ``sample_weight`` drops padded samples (``ops/metrics.py``). Under a
         process group ``inputs`` and ``outputs`` hold this rank's rows, and
         the metrics are the global batch's: the weighted sums and the counts
-        are summed over the ranks, then divided."""
+        are summed over the ranks, then divided. ``over_ranks=False``
+        scores the rows given alone (validation's global batch)."""
         cfg = self.cfg
         out = depth_metrics(
             outputs[("disp_scaled", 0, 0)], inputs["depth_gt"], inputs["depth_valid"], inputs["gt_dim"],
             cfg.eval_img_bound, min_depth=cfg.eval_min_depth, max_depth=float(cfg.eval_max_depth),
             mask_pts=mask_pts, labels=labels, sample_weight=sample_weight,
         )
-        if self.world == 1:
+        if self.world == 1 or not over_ranks:
             return out
         weight = torch.ones(len(inputs["depth_gt"])) if sample_weight is None else torch.as_tensor(sample_weight)
         count = weight.float().sum().to(outputs[("disp_scaled", 0, 0)].device)
@@ -565,18 +587,22 @@ class Trainer:
         run (the JAX package's ``setup_logging``). Where wandb does not
         import or its ``init`` fails the run trains on without it; on a
         machine with no network wandb's own ``WANDB_MODE=offline`` keeps the
-        run on disk."""
+        run on disk. Under a process group the visualisation runs where
+        rank 0's wandb started, on every rank (:meth:`log_vis`)."""
         self.save_opt()
         self._wandb = None
-        if self.cfg.no_train_vis:
-            return
-        try:
-            import wandb
+        if not self.cfg.no_train_vis:
+            try:
+                import wandb
 
-            wandb.init(project="Dynamo", name=self.cfg.model_name, notes=self.cfg.comment, config=self.cfg.to_dict())
-            self._wandb = wandb
-        except Exception as e:  # any failure: train on without wandb, as the JAX package does
-            self.print(f"wandb not started ({e!r}): training without the visualisation")
+                wandb.init(project="Dynamo", name=self.cfg.model_name, notes=self.cfg.comment,
+                           config=self.cfg.to_dict())
+                self._wandb = wandb
+            except Exception as e:  # any failure: train on without wandb, as the JAX package does
+                self.print(f"wandb not started ({e!r}): training without the visualisation")
+        # log_vis takes its maxima over the ranks: every rank follows rank
+        # 0's answer, so that all of them enter the reduction together.
+        self._vis_ranks = pdist.broadcast_object(self._wandb is not None)
 
     def log_scalars(self, mode: str, losses: Dict):
         """Keep the 0-d entries of ``losses`` as floats in :attr:`history`,
@@ -592,16 +618,14 @@ class Trainer:
         except Exception as e:  # a logging failure does not stop the run, as in the JAX package
             self.print(f"wandb.log failed: {e!r}")
 
-    def vis_grids(self, batch: Dict) -> np.ndarray:
-        """The 3x3 training-visualisation grid of each sample of ``batch``
-        (device tensors, from :meth:`to_device`), (min(B, rows), 3H, 3W, 3)
-        float32 in [0, 1] on the host (Trainer.py:607-654; the JAX package's
-        ``vis_step`` and ``log_vis``): [rgb | reconstruction from frame
-        ``frame_ids[1]`` | L1 / max L1 over the batch], [disparity | motion
-        mask | depth / max depth], and the ego, independent and total flow
-        colour wheels, valued by their magnitude over the largest of the
-        three. The bare model runs in eval mode with no graph, with the
-        phase's flags; every module's mode is restored afterwards."""
+    def _vis_panels(self, batch: Dict) -> Dict:
+        """The visualisation's forward of ``batch`` (this rank's rows) and
+        its panels on the host, NHWC: the L1 error over its largest value
+        and the three colour wheels valued by their magnitude over the
+        largest of the three, both maxima taken over the ranks (the JAX
+        package takes them over the global batch, ``log_vis``). The bare
+        model runs in eval mode with no graph, with the phase's flags; every
+        module's mode is restored afterwards."""
         cfg = self.cfg
         inputs = self.process_inputs_device(batch)
         modes = {m: m.training for m in self.model.modules()}
@@ -621,36 +645,65 @@ class Trainer:
             return t.permute(0, 2, 3, 1).float().cpu().numpy()
 
         color, recon = host(inputs[("color", 0, 0)]), host(outputs[("color", f, 0)])
-        disp, mask = host(outputs[("disp", 0, 0)]), host(outputs[("motion_mask_r", f, 0)])
         depth, flow = host(outputs[("depth", 0, 0)]), host(outputs[("independ_flow", f, 0)])
         K, inv_K = inputs[("K", 0)].cpu().numpy(), inputs[("inv_K", 0)].cpu().numpy()
         T = outputs[("cam_T_cam", 0, f)].float().cpu().numpy()
 
         l1 = np.abs(color - recon).mean(-1, keepdims=True)
-        l1 = l1 / (l1.max() + 1e-6)
         wheels = [vis_motion(depth, K, inv_K, motion_map=m, camTcam=t) for m, t in ((None, T), (flow, None), (flow, T))]
-        max_mag = max(mag for _, mag in wheels)
-        for hsv, mag in wheels:
+        l1_max, mags = l1.max(), [mag for _, mag in wheels]
+        if self.world > 1:
+            peaks = pdist.all_reduce_max([torch.tensor([float(l1_max), *mags], dtype=torch.float64,
+                                                       device=self.device)])[0].tolist()
+            l1_max, mags = np.float32(peaks[0]), peaks[1:]
+        l1 = l1 / (l1_max + 1e-6)
+        max_mag = max(mags)
+        for hsv, mag in wheels:  # hsv's value is |m| over this rank's own magnitude
             hsv[..., 2] = np.clip(hsv[..., 2] * mag / max_mag, 0, 1)
-        ego, ind, tot = (1 - hsv_to_rgb(hsv) for hsv, _ in wheels)
+        return {"color": color, "recon": recon, "l1": l1, "disp": host(outputs[("disp", 0, 0)]),
+                "mask": host(outputs[("motion_mask_r", f, 0)]), "depth": depth, "wheels": [h for h, _ in wheels]}
+
+    def vis_grids(self, batch: Dict) -> np.ndarray:
+        """The 3x3 training-visualisation grid of each sample of ``batch``
+        (device tensors, from :meth:`to_device`), (min(B, rows), 3H, 3W, 3)
+        float32 in [0, 1] on the host (Trainer.py:607-654; the JAX package's
+        ``vis_step`` and ``log_vis``): [rgb | reconstruction from frame
+        ``frame_ids[1]`` | L1 / max L1 over the batch], [disparity | motion
+        mask | depth / max depth], and the ego, independent and total flow
+        colour wheels, valued by their magnitude over the largest of the
+        three (:meth:`_vis_panels`; under a process group the maxima are
+        the global batch's, and every rank must call this together)."""
+        p = self._vis_panels(batch)
+        ego, ind, tot = (1 - hsv_to_rgb(hsv) for hsv in p["wheels"])
 
         def rep3(x):
             return np.repeat(x, 3, axis=-1)
 
         grids = []
-        for j in range(min(color.shape[0], self.B)):
-            rows = [np.concatenate([color[j], recon[j], rep3(l1[j])], axis=1),
-                    np.concatenate([rep3(disp[j]), rep3(mask[j]), rep3(depth[j] / depth[j].max())], axis=1),
+        for j in range(min(p["color"].shape[0], self.B)):
+            rows = [np.concatenate([p["color"][j], p["recon"][j], rep3(p["l1"][j])], axis=1),
+                    np.concatenate([rep3(p["disp"][j]), rep3(p["mask"][j]), rep3(p["depth"][j] / p["depth"][j].max())],
+                                   axis=1),
                     np.concatenate([ego[j], ind[j], tot[j]], axis=1)]
             grids.append(np.clip(np.concatenate(rows, axis=0), 0, 1))
         return np.stack(grids)
 
     def log_vis(self, mode: str, batch: Dict):
         """Log :meth:`vis_grids` of ``batch`` to wandb, one image
-        ``vis/{mode}_{j}`` per sample, at ``g_step``: rank 0 only, and
-        nothing where wandb is off. No collective: the other ranks do not
-        wait."""
-        if self._wandb is None or self.cfg.no_train_vis or not pdist.is_main_process():
+        ``vis/{mode}_{j}`` per sample, at ``g_step``, where wandb is on.
+        Under a process group every rank runs the forward of its own rows,
+        because the panels' maxima are reduced over the ranks; rank 0 alone
+        renders its rows and logs them, as both packages render the global
+        batch's first ``B`` rows. Whether it runs there is rank 0's answer,
+        taken once by :meth:`setup_logging`, so every rank enters the
+        reduction at the same steps."""
+        if self.world > 1:
+            if not self._vis_ranks:
+                return
+            if not pdist.is_main_process():
+                self._vis_panels(batch)
+                return
+        elif self._wandb is None or self.cfg.no_train_vis:
             return
         package = {f"vis/{mode}_{j}": self._wandb.Image(grid) for j, grid in enumerate(self.vis_grids(batch))}
         try:

@@ -28,7 +28,12 @@ target. Both are held here on inputs with such ties.
 K1's and K2's bfloat16-image instances are held against the plain version
 on the same bfloat16 image, on such shapes, at the b8 step's size on the
 ego-motion grid, on grid entries exactly on the border, and with the image
-2 bytes off 4-byte alignment.
+2 bytes off 4-byte alignment; and, bit for bit, against the float32
+instances on the rounded image where their row walkers run (more rows than
+resident blocks and fewer, runs longer than their ring, B of 1, 3 and 8, an
+odd Ho) and where a launch falls back to the template (odd Wo, Wo not a
+multiple of 4 for K2, rows wider than a stage, C other than 3 for K2, a grid
+and gradient off 16-byte alignment).
 """
 
 import pytest
@@ -154,6 +159,46 @@ def test_bf16_warp_kernels_match_plain(dev, shape, kind):
     torch.testing.assert_close(d_img.float(), d_img_p.float(), rtol=0, atol=_scale_tol(d_img_p.float(), 2 ** -7))
     _, d_grid_k = warp.warp_bwd(img, grid, cot, False)
     torch.testing.assert_close(d_grid_k, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
+
+
+@pytest.mark.parametrize("shape,kind", [
+    ((8, 3, 192, 640, 192, 640), "ego"),  # the b8 step: more rows than resident blocks
+    ((1, 3, 24, 64, 20, 64), "uniform"),  # B=1: fewer rows than blocks
+    ((3, 3, 37, 70, 37, 68), "uniform"),  # B=3, an odd Ho
+    ((4, 3, 64, 128, 1000, 1024), "uniform"),  # the widest row: runs of 11 rows, the ring wraps
+    ((2, 3, 16, 48, 9, 33), "uniform"),  # odd Wo: the template
+    ((2, 3, 16, 48, 8, 66), "uniform"),  # Wo = 2 mod 4: K1's rows, K2's template
+    ((1, 3, 16, 48, 4, 1040), "uniform"),  # wider than a stage: the template
+    ((2, 1, 20, 40, 12, 40), "uniform"), ((2, 4, 20, 40, 12, 40), "uniform"),  # C != 3: K2's generic template
+    ((2, 3, 16, 48, 8, 64), "misaligned"),  # grid and gradient 4 bytes off 16-byte alignment: the template
+])
+def test_bf16_row_walkers_are_the_float32_instances_on_the_rounded_image(dev, shape, kind):
+    """K1's and K2's bfloat16 instances, row walkers where the launch fits
+    them (``csrc/warp.cu``), template instances where not: the same float32
+    arithmetic after the taps, so bit-equal to the float32 instances on the
+    image rounded to bfloat16, and within the plain version's tolerances."""
+    B, C, H, W, Ho, Wo = shape
+    g = torch.Generator(device=dev).manual_seed(16)
+    img = torch.rand(B, C, H, W, device=dev, generator=g).bfloat16()
+    if kind == "ego":
+        grid = ego_motion_grid(B, Ho, Wo, seed=0).to(dev)
+    else:
+        grid = torch.rand(B, Ho, Wo, 2, device=dev, generator=g) * 2.4 - 1.2
+    cot = torch.randn(B, C, Ho, Wo, device=dev, generator=g)
+    if kind == "misaligned":
+        grid, cot = _misaligned(grid), _misaligned(cot)
+    reset_launch_counts()
+    out = warp.warp_fwd(img, grid)
+    _, d_grid = warp.warp_bwd(img, grid, cot, False)
+    assert launch_counts()["warp_fwd_bf16"] == 1 and launch_counts()["warp_bwd_bf16"] == 1
+    out_32 = warp.warp_fwd(img.float(), grid)
+    _, d_grid_32 = warp.warp_bwd(img.float(), grid, cot, False)
+    assert torch.equal(out, out_32) and torch.equal(d_grid, d_grid_32)
+    img_p, grid_p = img.clone().requires_grad_(), grid.clone().requires_grad_()
+    out_p = warp.grid_sample_plain(img_p, grid_p)
+    (d_grid_p,) = torch.autograd.grad(out_p, grid_p, cot)
+    torch.testing.assert_close(out, out_p.detach(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(d_grid, d_grid_p, rtol=0, atol=_scale_tol(d_grid_p, 1e-5))
 
 
 def _grid(kind, B, H, W, Ho, Wo, dev, g):

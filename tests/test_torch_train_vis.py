@@ -173,10 +173,19 @@ def test_the_entry_point_trains_with_or_without_wandb(splits, monkeypatch, case)
 
 
 def test_log_vis_runs_on_rank_0_only(monkeypatch):
+    """Rank 1 of two renders and logs nothing: it runs the panels' forward,
+    whose maxima are reduced over the ranks, where rank 0 visualises, and
+    nothing where it does not (``tests/test_torch_ddp_monitoring.py`` runs
+    two real ranks)."""
     trainer = Trainer(TConfig(**KW), device="cpu", phase="fine_tune", drop_path_rate=0.0)
     stub = RecordingWandb()
     trainer._wandb = stub
+    trainer.world = 2
     monkeypatch.setattr(pdist, "is_main_process", lambda: False)
     monkeypatch.setattr(trainer, "vis_grids", lambda batch: pytest.fail("rendered on rank 1"))
-    trainer.log_vis("train", {})
-    assert not stub.logs
+    panels = []
+    monkeypatch.setattr(trainer, "_vis_panels", panels.append)
+    for rank_0_visualises in (True, False):
+        trainer._vis_ranks = rank_0_visualises
+        trainer.log_vis("train", {})
+    assert panels == [{}] and not stub.logs

@@ -198,3 +198,55 @@ def init_fingerprints(depth_models):
 
     return [pdist.state_fingerprint(DynamoModel(depth_model=d, generator=torch.Generator().manual_seed(0))).tolist()
             for d in depth_models]
+
+
+class _RecordingWandb:
+    """A stand-in for the wandb module: records ``log``'s dicts; ``init``
+    raises where this rank's start is to fail."""
+
+    def __init__(self, init_fails):
+        self.init_fails, self.logs = init_fails, []
+
+    def init(self, **kwargs):
+        if self.init_fails:
+            raise RuntimeError("no network")
+
+    def log(self, data, step=None):
+        self.logs.append(({k: v.copy() for k, v in data.items()}, step))
+
+    def Image(self, array):  # noqa: N802 - wandb's name
+        return array
+
+
+def monitoring_rank(out_dir):
+    """``Trainer.val`` in each phase of ``inputs.pkl`` on this rank's rows of
+    its batch (the validation loader replaced by that one batch), then, in
+    the last phase, ``setup_logging`` and ``log_vis`` of the same rows with
+    each rank's wandb start made to fail as ``inputs["vis_cases"]`` says;
+    records the validation scalars and what each stand-in logged."""
+    import sys
+
+    from dynamo_depth_torch.config import DynamoConfig
+    from dynamo_depth_torch.training.trainer import Trainer
+
+    rank, world = _join()
+    inputs = pickle.loads((Path(out_dir) / "inputs.pkl").read_bytes())
+    cfg = DynamoConfig(**inputs["cfg"], log_dir=str(Path(out_dir) / f"logs{rank}"))
+    local = {k: v[rank * cfg.batch_size:(rank + 1) * cfg.batch_size] for k, v in inputs["batch"].items()}
+    trainer = Trainer(cfg, device="cpu", phase=inputs["phases"][0], drop_path_rate=0.0)
+    trainer.model.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["state"].items()})
+    trainer._make_val_loader = lambda: [local]
+    records = {"val": {}, "vis": {}}
+    for phase in inputs["phases"]:
+        trainer.setup_phase(phase, inputs["steps_per_epoch"])
+        trainer.step, trainer._val_iter = inputs["step"], None
+        trainer.val()
+        records["val"][phase] = trainer.history[-1]["scalars"]
+    trainer.g_step = 3
+    for case, failing_ranks in inputs["vis_cases"].items():
+        stub = sys.modules["wandb"] = _RecordingWandb(rank in failing_ranks)
+        trainer.setup_logging()
+        trainer.log_vis("train", trainer.to_device(local))
+        records["vis"][case] = stub.logs
+    (Path(out_dir) / f"monitoring_rank{rank}.pkl").write_bytes(pickle.dumps(records))
+    dist.destroy_process_group()
