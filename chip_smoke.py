@@ -147,7 +147,7 @@ Phases (any failure exits non-zero, nothing is caught):
    float32 warp instances, profiled, and one more step whose six warp
    inputs are captured and saved to
    ``build/chip_smoke/step_warp_inputs_b8.pt`` (for ``bench/kernel_ab.py
-   --step-inputs ... --cold`` and ``bench/warp_bf16_variants.py``); (a)
+   --step-inputs ... --cold``); (a)
    the instances against the plain version on the bfloat16 image (a
    uniform grid, the ego-motion grid, a grid at the clamp's ties and the
    six step grids), and bit-equal to the float32 instances on the rounded

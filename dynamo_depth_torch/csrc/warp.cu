@@ -90,7 +90,20 @@
 //   path. A tap row's pair (v00, v01) comes in one 4-byte load where it is
 //   4-byte aligned (an even origin, on an aligned plane), else as two 2-byte
 //   loads; the float32 instances keep their four 4-byte loads.
-// - Tiles, vectors and register limits are the float32 instances'.
+// - Tiles and register budgets of their own (Tiles<__nv_bfloat16>), chosen
+//   at B=8, 192x640 on the batch-8 step's warp inputs (PERF.md): K1 takes
+//   K2's square tile (16x8 threads, a 32x8 output tile, whose source window
+//   is smaller than the 64x4 tile's), 3% faster with a cold L2; K2 takes 56
+//   registers a thread (9 blocks on an SM) in place of 40, 10% faster.
+//   Vectors are the float32 instances'.
+// - Measured and dropped (PERF.md): persistent blocks walking whole output
+//   rows or 64-pixel column bands, their grid and gradient brought one to
+//   three rows ahead by cp.async.bulk (TMA) into a ring of shared memory on
+//   mbarriers, or by plain loads one row ahead; L2 prefetch of the source
+//   rows, of the next wave's streams or of every input at the start; other
+//   tiles and register budgets. The TMA ring shrank the L1 that the tap
+//   gathers hit, and a walker's rows ran one after another: 15-200% slower
+//   with a cold L2 than the float32 instances' tiles.
 //
 // Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out and g_out
 // (B, C, Ho, Wo), d_grid (B, Ho, Wo, 2); contiguous; the image float32 or
@@ -99,7 +112,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -115,31 +127,17 @@ constexpr int BWD_PX = 2;                // output pixels per thread, along a ro
 constexpr int BWD_TW = BWD_TX * BWD_PX;  // output tile width (32); height BWD_TY
 constexpr int BWD_BLOCKS_PER_SM = 12;    // holds a thread to 40 registers (without d_image)
 
-// Tiles and register budgets per image type (A/B variants of the bfloat16
-// instances; the float32 instances' are the constants above).
-#ifndef WARP_BF16_FWD_TX
-#define WARP_BF16_FWD_TX 32
-#endif
-#ifndef WARP_BF16_FWD_TY
-#define WARP_BF16_FWD_TY 4
-#endif
-#ifndef WARP_BF16_BWD_TX
-#define WARP_BF16_BWD_TX 16
-#endif
-#ifndef WARP_BF16_BWD_TY
-#define WARP_BF16_BWD_TY 8
-#endif
-#ifndef WARP_BF16_BWD_REGS
-#define WARP_BF16_BWD_REGS 40
-#endif
+// K1's threads per block (FX x FY) and the blocks on an SM that K2's
+// launch bounds ask for without d_image, by image type: the bfloat16
+// instances' K1 takes K2's tile, and their K2 9 blocks, which hold a thread
+// to 56 registers.
 template <typename T>
 struct Tiles {
-  static constexpr int FX = FWD_TX, FY = FWD_TY, BX = BWD_TX, BY = BWD_TY, BWD_MINB = BWD_BLOCKS_PER_SM;
+  static constexpr int FX = FWD_TX, FY = FWD_TY, BWD_MINB = BWD_BLOCKS_PER_SM;
 };
 template <>
 struct Tiles<__nv_bfloat16> {
-  static constexpr int FX = WARP_BF16_FWD_TX, FY = WARP_BF16_FWD_TY, BX = WARP_BF16_BWD_TX, BY = WARP_BF16_BWD_TY;
-  static constexpr int BWD_MINB = 65536 / (BX * BY * WARP_BF16_BWD_REGS);
+  static constexpr int FX = BWD_TX, FY = BWD_TY, BWD_MINB = 9;
 };
 
 struct Coord {
@@ -178,51 +176,6 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* s, float& a, floa
   }
 }
 
-#ifdef WARP_TEMPLATE_PREFETCH_ALL
-// (A/B variant) The first wave's blocks ask L2 for an equal share each of
-// `bytes` at `p` (16-byte aligned), so that the whole input is on its way
-// from device memory at the start.
-__device__ __forceinline__ void prefetch_share(const void* p, size_t bytes) {
-  unsigned nsm;
-  asm("mov.u32 %0, %%nsmid;" : "=r"(nsm));
-  const long long here = blockIdx.x + static_cast<long long>(gridDim.x) * (blockIdx.y + static_cast<long long>(gridDim.y) * blockIdx.z);
-  const long long waves = static_cast<long long>(nsm) * 12;
-  if (here >= waves || reinterpret_cast<uintptr_t>(p) % 16 != 0) return;
-  const size_t share = ((bytes + waves - 1) / waves + 15) / 16 * 16, at = here * share;
-  if (at >= bytes) return;
-  const size_t n = min(share, bytes - at) / 16 * 16;
-  if (n > 0)
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(static_cast<const char*>(p) + at),
-                 "r"(static_cast<unsigned>(n)) : "memory");
-}
-#endif
-
-#ifdef WARP_TEMPLATE_PREFETCH
-// (A/B variant) The tile this block's successor on its SM slot will take,
-// about one wave on: its grid rows and, for K2, its gradient rows asked of
-// L2 now. One thread of a bfloat16 instance's block, aligned launches only.
-__device__ __forceinline__ void prefetch_next_tile(const float* grid, const float* g_out, int C, int Ho, int Wo,
-                                                   int TW, int TY) {
-  unsigned nsm;
-  asm("mov.u32 %0, %%nsmid;" : "=r"(nsm));
-  const long long here = blockIdx.x + static_cast<long long>(gridDim.x) * (blockIdx.y + static_cast<long long>(gridDim.y) * blockIdx.z);
-  const long long next = here + static_cast<long long>(nsm) * 12;
-  if (next >= static_cast<long long>(gridDim.x) * gridDim.y * gridDim.z) return;
-  const int bx = static_cast<int>(next % gridDim.x), by = static_cast<int>((next / gridDim.x) % gridDim.y);
-  const int bz = static_cast<int>(next / (static_cast<long long>(gridDim.x) * gridDim.y));
-  const int ox0 = bx * TW, oy0 = by * TY, w = min(TW, Wo - ox0), rows = min(TY, Ho - oy0);
-  const size_t P = static_cast<size_t>(Ho) * Wo;
-  for (int r = 0; r < rows; ++r) {
-    const size_t at = static_cast<size_t>(oy0 + r) * Wo + ox0;
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(grid + 2 * (bz * P + at)), "r"(w * 8) : "memory");
-    if (g_out != nullptr && Wo % 4 == 0 && w % 4 == 0)
-      for (int c = 0; c < C; ++c)
-        asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(g_out + (static_cast<size_t>(bz) * C + c) * P + at),
-                     "r"(w * 4) : "memory");
-  }
-}
-#endif
-
 template <typename T>
 __global__ void __launch_bounds__(Tiles<T>::FX * Tiles<T>::FY)
     warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ grid,
@@ -230,19 +183,6 @@ __global__ void __launch_bounds__(Tiles<T>::FX * Tiles<T>::FY)
   const int b = blockIdx.z;
   const int ox = blockIdx.x * Tiles<T>::FX * FWD_PX + threadIdx.x * FWD_PX;
   const int oy = blockIdx.y * Tiles<T>::FY + threadIdx.y;
-#ifdef WARP_TEMPLATE_PREFETCH
-  if constexpr (sizeof(T) == 2) {
-    if (vec && threadIdx.x == 0 && threadIdx.y == 0) prefetch_next_tile(grid, nullptr, C, Ho, Wo, FWD_TW, FWD_TY);
-  }
-#endif
-#ifdef WARP_TEMPLATE_PREFETCH_ALL
-  if constexpr (sizeof(T) == 2) {
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-      prefetch_share(img, static_cast<size_t>(gridDim.z) * C * H * W * sizeof(T));
-      prefetch_share(grid, static_cast<size_t>(gridDim.z) * Ho * Wo * 8);
-    }
-  }
-#endif
   if (oy >= Ho || ox >= Wo) return;
   const int n = min(FWD_PX, Wo - ox);  // this thread's pixels
   const int at = oy * Wo + ox;         // offset within an output plane
@@ -388,26 +328,11 @@ __device__ __forceinline__ void warp_bwd_channels(const BwdArgs<T>& a, const Bwd
 // gradient and d_grid are aligned for the vector accesses and Wo is even, so
 // a thread's pixels are both inside the row.
 template <typename T, int kC, bool kImageGrad, bool kVec>
-__global__ void __launch_bounds__(Tiles<T>::BX * Tiles<T>::BY, kImageGrad ? 1 : Tiles<T>::BWD_MINB)
+__global__ void __launch_bounds__(BWD_TX * BWD_TY, kImageGrad ? 1 : Tiles<T>::BWD_MINB)
     warp_bwd_kernel(BwdArgs<T> a) {
   const int b = blockIdx.z;
-  const int ox = blockIdx.x * Tiles<T>::BX * BWD_PX + threadIdx.x * BWD_PX;
-  const int oy = blockIdx.y * Tiles<T>::BY + threadIdx.y;
-#ifdef WARP_TEMPLATE_PREFETCH
-  if constexpr (sizeof(T) == 2 && kVec && !kImageGrad) {
-    if (threadIdx.x == 0 && threadIdx.y == 0) prefetch_next_tile(a.grid, a.g_out, a.C, a.Ho, a.Wo, BWD_TW, BWD_TY);
-  }
-#endif
-#ifdef WARP_TEMPLATE_PREFETCH_ALL
-  if constexpr (sizeof(T) == 2 && !kImageGrad) {
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-      const size_t P = static_cast<size_t>(a.B) * a.Ho * a.Wo;
-      prefetch_share(a.img, static_cast<size_t>(a.B) * a.C * a.H * a.W * sizeof(T));
-      prefetch_share(a.grid, P * 8);
-      prefetch_share(a.g_out, P * a.C * 4);
-    }
-  }
-#endif
+  const int ox = blockIdx.x * BWD_TW + threadIdx.x * BWD_PX;
+  const int oy = blockIdx.y * BWD_TY + threadIdx.y;
   if (oy >= a.Ho || ox >= a.Wo) return;
   const int nc = kC > 0 ? kC : a.C;
   BwdPixels px;
@@ -468,9 +393,8 @@ __global__ void __launch_bounds__(Tiles<T>::BX * Tiles<T>::BY, kImageGrad ? 1 : 
 
 template <typename T, int kC>
 void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
-  constexpr int TW = Tiles<T>::BX * BWD_PX, TY = Tiles<T>::BY;
-  const dim3 blocks((a.Wo + TW - 1) / TW, (a.Ho + TY - 1) / TY, a.B);
-  const dim3 threads(Tiles<T>::BX, TY);
+  const dim3 blocks((a.Wo + BWD_TW - 1) / BWD_TW, (a.Ho + BWD_TY - 1) / BWD_TY, a.B);
+  const dim3 threads(BWD_TX, BWD_TY);
   const bool vec = a.Wo % BWD_PX == 0 && reinterpret_cast<uintptr_t>(a.grid) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.d_grid) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.g_out) % (4 * BWD_PX) == 0;
@@ -481,687 +405,6 @@ void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
     if (vec) warp_bwd_kernel<T, kC, false, true><<<blocks, threads, 0, stream>>>(a);
     else warp_bwd_kernel<T, kC, false, false><<<blocks, threads, 0, stream>>>(a);
   }
-}
-
-// ---------------------------------------------------------------------------
-// The bfloat16-image instances' Hopper design (K1 warp_fwd_bf16, K2
-// warp_bwd_bf16 at C = 3, no d_image): persistent row walkers fed by a TMA
-// ring. Where a launch does not fit it (see tma_fwd_fits / tma_bwd_fits),
-// the instance is the template above.
-// - Work unit: one output row of one image (B * Ho rows). The launch holds
-//   as many blocks as are resident at once on every SM, and each walks a
-//   run of consecutive rows of that fixed split, so the last wave is never
-//   part-full and successive rows of a block read overlapping source rows.
-// - The contiguous streams come ahead of use: one thread issues the row's
-//   cp.async.bulk copies (the grid's 8 B/px; K2 also the gradient's
-//   3 x 4 B/px) into a ring of kTmaStages rows in shared memory, completed
-//   on one mbarrier per stage, up to kTmaStages - 1 rows ahead of the row
-//   being computed. A row's coordinates no longer wait on a load from
-//   device memory at the head of each thread's chain.
-// - Taps stay gathers through the read-only path, with the paired 4-byte
-//   load (load_pair). With kTmaPrefetchRows >= 0 the same thread also asks
-//   L2 for the source rows around the row it issues (cp.async.bulk.prefetch):
-//   the first row of a run oy - d .. oy + 1 + d of each plane, each later row
-//   the one new row oy + 1 + d.
-// - Threads: one per pixel pair of a row (Wo / 2, rounded up to a warp),
-//   each with the template's arithmetic in the template's order, so that
-//   the results are bit-equal to the float32 instances' on the rounded
-//   image. The output (K1) and d_grid (K2) leave with the template's vector
-//   stores.
-
-#ifndef WARP_TMA_STAGES
-#define WARP_TMA_STAGES 3
-#endif
-#ifndef WARP_TMA_PREFETCH_ROWS
-#define WARP_TMA_PREFETCH_ROWS -1
-#endif
-#ifndef WARP_TMA_BLOCKS_PER_SM
-#define WARP_TMA_BLOCKS_PER_SM 0
-#endif
-#ifndef WARP_TMA_MIN_BLOCKS
-#define WARP_TMA_MIN_BLOCKS 3
-#endif
-#ifdef WARP_ROWS_LDG
-constexpr bool kRowsLdg = true;  // the streams by plain loads, no ring (for A/B timing)
-#else
-constexpr bool kRowsLdg = false;
-#endif
-constexpr int kTmaStages = WARP_TMA_STAGES;
-constexpr int kTmaPrefetchRows = WARP_TMA_PREFETCH_ROWS;  // -1: no L2 prefetch
-constexpr int kTmaMaxWo = 1024;                           // a row's streams must fit one stage
-constexpr int kTmaThreads = kTmaMaxWo / 2;
-constexpr int kTmaBlocksPerSm = WARP_TMA_MIN_BLOCKS;      // 3 holds a thread to 40 registers at 512
-constexpr int kTmaBlocksPerSmCap = WARP_TMA_BLOCKS_PER_SM;  // 0: as many as fit
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) from 16-byte aligned global memory to shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes), "r"(smem_addr(bar))
-               : "memory");
-}
-
-[[maybe_unused]] __device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
-}
-
-// A launch of the row walkers: rows [first, last) of the B * Ho output rows
-// fall to one block; its stage holds the row's grid (Wo x 2 floats) and,
-// for K2, its gradient (C rows of Wo floats).
-struct TmaRows {
-  int per_block;      // rows per block (the last block may have fewer)
-  int rows;           // B * Ho
-  uint32_t stage;     // bytes of one stage, a multiple of 128
-  bool prefetch;      // the image's rows may be prefetched: 16-byte aligned rows
-};
-
-// Ask L2 for source rows y0..y1 of each of the C planes of image b.
-template <typename T>
-__device__ __forceinline__ void prefetch_rows(const T* img, int b, int C, int H, int W, int y0, int y1) {
-  y0 = max(y0, 0);
-  y1 = min(y1, H - 1);
-  if (y0 > y1) return;
-  const uint32_t bytes = static_cast<uint32_t>(y1 - y0 + 1) * W * sizeof(T);
-  for (int c = 0; c < C; ++c)
-    prefetch_l2(img + (static_cast<size_t>(b) * C + c) * H * W + static_cast<size_t>(y0) * W, bytes);
-}
-
-// The producer's part for row r into stage s: the barrier's byte count, the
-// copies and, where asked, the L2 prefetch of its source rows.
-template <typename T, int kC>
-__device__ __forceinline__ void issue_row(const TmaRows& t, unsigned char* stage, uint64_t* bar, int r, bool first,
-                                          const T* img, const float* grid, const float* g_out, int C, int H, int W,
-                                          int Ho, int Wo) {
-  const uint32_t grid_bytes = static_cast<uint32_t>(Wo) * 8, plane_bytes = static_cast<uint32_t>(Wo) * 4;
-  mbar_expect_tx(bar, grid_bytes + kC * plane_bytes);
-  bulk_load(stage, grid + static_cast<size_t>(r) * Wo * 2, grid_bytes, bar);
-  const int b = r / Ho, oy = r - b * Ho;
-#pragma unroll
-  for (int c = 0; c < kC; ++c)
-    bulk_load(stage + grid_bytes + c * plane_bytes, g_out + ((static_cast<size_t>(b) * kC + c) * Ho + oy) * Wo,
-              plane_bytes, bar);
-  if constexpr (kTmaPrefetchRows >= 0) {
-    if (t.prefetch) {
-      // The source rows of output row oy, as if the grid were the identity
-      // scaled to the image, and kTmaPrefetchRows rows on either side.
-      const int y = Ho > 1 ? static_cast<int>((static_cast<long long>(oy) * (H - 1)) / (Ho - 1)) : 0;
-      if (first || oy == 0) prefetch_rows(img, b, C, H, W, y - kTmaPrefetchRows, y + 1 + kTmaPrefetchRows);
-      else prefetch_rows(img, b, C, H, W, y + 1 + kTmaPrefetchRows, y + 1 + kTmaPrefetchRows);
-    }
-  }
-}
-
-// The ring of a block: its rows [first, last), kTmaStages stages of
-// `t.stage` bytes in dynamic shared memory and one mbarrier per stage.
-struct Ring {
-  unsigned char* stages;
-  uint64_t* full;
-  int first, last;
-};
-
-// Init the barriers and issue the first rows, one to a stage; every thread
-// then waits for a stage with ring_wait.
-template <typename T, int kC>
-__device__ __forceinline__ void ring_fill(const TmaRows& t, const Ring& q, const T* img, const float* grid,
-                                          const float* g_out, int C, int H, int W, int Ho, int Wo) {
-  if (kRowsLdg) return;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kTmaStages; ++s) mbar_init(&q.full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < kTmaStages && q.first + s < q.last; ++s)
-      issue_row<T, kC>(t, q.stages + s * t.stage, &q.full[s], q.first + s, s == 0, img, grid, g_out, C, H, W, Ho,
-                       Wo);
-  }
-  __syncthreads();
-}
-
-// The stage of the block's k-th row, once its copies have landed.
-__device__ __forceinline__ const unsigned char* ring_wait(const TmaRows& t, const Ring& q, int k) {
-  if (kRowsLdg) return nullptr;
-  const int s = k % kTmaStages;
-  mbar_wait(&q.full[s], static_cast<uint32_t>(k / kTmaStages) & 1);
-  return q.stages + s * t.stage;
-}
-
-// After the block's k-th row: once every thread is done with its stage,
-// refill the stage with the row kTmaStages ahead.
-template <typename T, int kC>
-__device__ __forceinline__ void ring_refill(const TmaRows& t, const Ring& q, int k, const T* img, const float* grid,
-                                            const float* g_out, int C, int H, int W, int Ho, int Wo) {
-  if (kRowsLdg) return;
-  __syncthreads();
-  const int r = q.first + k + kTmaStages, s = k % kTmaStages;
-  if (threadIdx.x == 0 && r < q.last) {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    issue_row<T, kC>(t, q.stages + s * t.stage, &q.full[s], r, false, img, grid, g_out, C, H, W, Ho, Wo);
-  }
-}
-
-// Named so that the profile tools, which count `warp_fwd_kernel` and
-// `warp_bwd_kernel`, count these too.
-template <typename T>
-__global__ void __launch_bounds__(kTmaThreads, kTmaBlocksPerSm)
-    warp_fwd_kernel_rows(const T* __restrict__ img, const float* __restrict__ grid, float* __restrict__ out, int C,
-                         int H, int W, int Ho, int Wo, TmaRows t) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ __align__(8) uint64_t full[kTmaStages];
-  const Ring q{ring, full, static_cast<int>(blockIdx.x) * t.per_block,
-               min(static_cast<int>(blockIdx.x + 1) * t.per_block, t.rows)};
-  if (q.first >= q.last) return;
-  ring_fill<T, 0>(t, q, img, grid, nullptr, C, H, W, Ho, Wo);
-  const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
-  for (int k = 0; q.first + k < q.last; ++k) {
-    const unsigned char* stage = ring_wait(t, q, k);
-    const int b = (q.first + k) / Ho, oy = q.first + k - b * Ho;
-    for (int j = threadIdx.x; 2 * j < Wo; j += blockDim.x) {
-      const float4 v = kRowsLdg ? __ldg(reinterpret_cast<const float4*>(grid + static_cast<size_t>(q.first + k) * Wo * 2) + j)
-                                : reinterpret_cast<const float4*>(stage)[j];
-      const float g[2 * FWD_PX] = {v.x, v.y, v.z, v.w};
-      int off[FWD_PX];
-      float wx[FWD_PX], wy[FWD_PX];
-#pragma unroll
-      for (int i = 0; i < FWD_PX; ++i) {
-        const Coord cx = unnormalize(g[2 * i], W), cy = unnormalize(g[2 * i + 1], H);
-        off[i] = cy.i0 * W + cx.i0;
-        wx[i] = cx.w;
-        wy[i] = cy.w;
-      }
-      const T* src = img + b * C * HW;
-      float* dst = out + b * C * P + static_cast<size_t>(oy) * Wo + 2 * j;
-      for (int c = 0; c < C; ++c) {
-        float o[FWD_PX];
-#pragma unroll
-        for (int i = 0; i < FWD_PX; ++i) {
-          const T* s = src + c * HW + off[i];
-          float v00, v01, v10, v11;
-          load_pair(s, v00, v01);
-          load_pair(s + W, v10, v11);
-          const float top = v00 + (v01 - v00) * wx[i];
-          const float bot = v10 + (v11 - v10) * wx[i];
-          o[i] = top + (bot - top) * wy[i];
-        }
-        *reinterpret_cast<float2*>(dst + c * P) = make_float2(o[0], o[1]);
-      }
-    }
-    ring_refill<T, 0>(t, q, k, img, grid, nullptr, C, H, W, Ho, Wo);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kTmaThreads, kTmaBlocksPerSm) warp_bwd_kernel_rows(BwdArgs<T> a, TmaRows t) {
-  constexpr int kC = 3;
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ __align__(8) uint64_t full[kTmaStages];
-  const Ring q{ring, full, static_cast<int>(blockIdx.x) * t.per_block,
-               min(static_cast<int>(blockIdx.x + 1) * t.per_block, t.rows)};
-  if (q.first >= q.last) return;
-  ring_fill<T, kC>(t, q, a.img, a.grid, a.g_out, kC, a.H, a.W, a.Ho, a.Wo);
-  BwdPixels px;
-  px.n = BWD_PX;
-  px.P = static_cast<size_t>(a.Ho) * a.Wo;
-  px.HW = static_cast<size_t>(a.H) * a.W;
-  const float sx = 0.5f * static_cast<float>(a.W - 1), sy = 0.5f * static_cast<float>(a.H - 1);
-  for (int k = 0; q.first + k < q.last; ++k) {
-    const unsigned char* stage = ring_wait(t, q, k);
-    const int b = (q.first + k) / a.Ho, oy = q.first + k - b * a.Ho;
-    const float* sgo = kRowsLdg ? a.g_out + (static_cast<size_t>(b) * kC * a.Ho + oy) * a.Wo
-                                : reinterpret_cast<const float*>(stage + static_cast<size_t>(a.Wo) * 8);
-    const size_t go_plane = kRowsLdg ? px.P : a.Wo;  // between the gradient's channel rows
-    const size_t plane0 = static_cast<size_t>(b) * kC;
-    for (int j = threadIdx.x; 2 * j < a.Wo; j += blockDim.x) {
-      px.at = static_cast<size_t>(oy) * a.Wo + 2 * j;
-      float go[kC][BWD_PX];
-#pragma unroll
-      for (int i = 0; i < kC; ++i) {
-        const float2 v = kRowsLdg ? __ldg(reinterpret_cast<const float2*>(sgo + i * go_plane) + j)
-                                  : reinterpret_cast<const float2*>(sgo + i * go_plane)[j];
-        go[i][0] = v.x;
-        go[i][1] = v.y;
-      }
-      const float4 v = kRowsLdg ? __ldg(reinterpret_cast<const float4*>(a.grid + static_cast<size_t>(q.first + k) * a.Wo * 2) + j)
-                                : reinterpret_cast<const float4*>(stage)[j];
-      const float g[2 * BWD_PX] = {v.x, v.y, v.z, v.w};
-      int off[BWD_PX];
-      Coord cx[BWD_PX], cy[BWD_PX];
-#pragma unroll
-      for (int i = 0; i < BWD_PX; ++i) {
-        cx[i] = unnormalize(g[2 * i], a.W);
-        cy[i] = unnormalize(g[2 * i + 1], a.H);
-        off[i] = cy[i].i0 * a.W + cx[i].i0;
-      }
-      float dwx[BWD_PX], dwy[BWD_PX];
-#pragma unroll
-      for (int i = 0; i < BWD_PX; ++i) dwx[i] = dwy[i] = 0.0f;
-      warp_bwd_channels<kC, false>(a, px, plane0, go, off, cx, cy, dwx, dwy);
-      *reinterpret_cast<float4*>(a.d_grid + 2 * (b * px.P + px.at)) =
-          make_float4(cx[0].inside * dwx[0] * sx, cy[0].inside * dwy[0] * sy, cx[1].inside * dwx[1] * sx,
-                      cy[1].inside * dwy[1] * sy);
-    }
-    ring_refill<T, kC>(t, q, k, a.img, a.grid, a.g_out, kC, a.H, a.W, a.Ho, a.Wo);
-  }
-}
-
-// ---- Band walkers (A/B variant): one warp walks down a 64-pixel column
-// band of one image, its own ring of stages fed by its lane 0 ----
-constexpr int kBandPx = 64;        // a warp's band: 32 lanes x 2 pixels
-constexpr int kBandWarps = 4;      // warps of a block, each on its own run
-#ifndef WARP_BAND_MIN_BLOCKS
-#define WARP_BAND_MIN_BLOCKS 12
-#endif
-
-struct BandPlan {
-  int per_warp;  // band rows per warp (the last warps may have fewer)
-  int items;     // B * bands * Ho
-  int bands;     // ceil(Wo / kBandPx)
-};
-
-// Lane 0's part for item i (band-major: b, band, row) into a warp's stage:
-// the band's grid row and, for K2, its gradient rows.
-template <int kC>
-__device__ __forceinline__ void issue_band(const BandPlan& p, unsigned char* stage, uint64_t* bar, int i,
-                                           const float* grid, const float* g_out, int Ho, int Wo) {
-  const int oy = i % Ho, band = (i / Ho) % p.bands, b = i / (Ho * p.bands);
-  const int x0 = band * kBandPx, w = min(kBandPx, Wo - x0);
-  const uint32_t grid_bytes = w * 8, plane_bytes = w * 4;
-  const size_t at = static_cast<size_t>(oy) * Wo + x0, P = static_cast<size_t>(Ho) * Wo;
-  mbar_expect_tx(bar, grid_bytes + kC * plane_bytes);
-  bulk_load(stage, grid + 2 * (b * P + at), grid_bytes, bar);
-#pragma unroll
-  for (int c = 0; c < kC; ++c)
-    bulk_load(stage + kBandPx * 8 + c * kBandPx * 4, g_out + (static_cast<size_t>(b) * kC + c) * P + at, plane_bytes,
-              bar);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kBandWarps, WARP_BAND_MIN_BLOCKS)
-    warp_fwd_kernel_bands(const T* __restrict__ img, const float* __restrict__ grid, float* __restrict__ out, int C,
-                          int H, int W, int Ho, int Wo, BandPlan p) {
-  constexpr uint32_t kStage = kBandPx * 8;
-  __shared__ __align__(128) unsigned char ring[kBandWarps][kTmaStages][kStage];
-  __shared__ __align__(8) uint64_t full[kBandWarps][kTmaStages];
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int first = (blockIdx.x * kBandWarps + wid) * p.per_warp, last = min(first + p.per_warp, p.items);
-  if (lane == 0) {
-    for (int s = 0; s < kTmaStages; ++s) mbar_init(&full[wid][s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < kTmaStages && first + s < last; ++s)
-      issue_band<0>(p, ring[wid][s], &full[wid][s], first + s, grid, nullptr, Ho, Wo);
-  }
-  __syncwarp();
-  const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
-  for (int k = 0; first + k < last; ++k) {
-    const int s = k % kTmaStages, i = first + k;
-    mbar_wait(&full[wid][s], static_cast<uint32_t>(k / kTmaStages) & 1);
-    const int oy = i % Ho, band = (i / Ho) % p.bands, b = i / (Ho * p.bands);
-    const int ox = band * kBandPx + 2 * lane;
-    if (ox < Wo) {
-      const float4 v = reinterpret_cast<const float4*>(ring[wid][s])[lane];
-      const float g[2 * FWD_PX] = {v.x, v.y, v.z, v.w};
-      int off[FWD_PX];
-      float wx[FWD_PX], wy[FWD_PX];
-#pragma unroll
-      for (int j = 0; j < FWD_PX; ++j) {
-        const Coord cx = unnormalize(g[2 * j], W), cy = unnormalize(g[2 * j + 1], H);
-        off[j] = cy.i0 * W + cx.i0;
-        wx[j] = cx.w;
-        wy[j] = cy.w;
-      }
-      const T* src = img + b * C * HW;
-      float* dst = out + b * C * P + static_cast<size_t>(oy) * Wo + ox;
-      for (int c = 0; c < C; ++c) {
-        float o[FWD_PX];
-#pragma unroll
-        for (int j = 0; j < FWD_PX; ++j) {
-          const T* sp = src + c * HW + off[j];
-          float v00, v01, v10, v11;
-          load_pair(sp, v00, v01);
-          load_pair(sp + W, v10, v11);
-          const float top = v00 + (v01 - v00) * wx[j];
-          const float bot = v10 + (v11 - v10) * wx[j];
-          o[j] = top + (bot - top) * wy[j];
-        }
-        *reinterpret_cast<float2*>(dst + c * P) = make_float2(o[0], o[1]);
-      }
-    }
-    __syncwarp();
-    if (lane == 0 && i + kTmaStages < last) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue_band<0>(p, ring[wid][s], &full[wid][s], i + kTmaStages, grid, nullptr, Ho, Wo);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kBandWarps, WARP_BAND_MIN_BLOCKS)
-    warp_bwd_kernel_bands(BwdArgs<T> a, BandPlan p) {
-  constexpr int kC = 3;
-  constexpr uint32_t kStage = kBandPx * (8 + 4 * kC);
-  __shared__ __align__(128) unsigned char ring[kBandWarps][kTmaStages][kStage];
-  __shared__ __align__(8) uint64_t full[kBandWarps][kTmaStages];
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int first = (blockIdx.x * kBandWarps + wid) * p.per_warp, last = min(first + p.per_warp, p.items);
-  if (lane == 0) {
-    for (int s = 0; s < kTmaStages; ++s) mbar_init(&full[wid][s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < kTmaStages && first + s < last; ++s)
-      issue_band<kC>(p, ring[wid][s], &full[wid][s], first + s, a.grid, a.g_out, a.Ho, a.Wo);
-  }
-  __syncwarp();
-  BwdPixels px;
-  px.n = BWD_PX;
-  px.P = static_cast<size_t>(a.Ho) * a.Wo;
-  px.HW = static_cast<size_t>(a.H) * a.W;
-  const float sx = 0.5f * static_cast<float>(a.W - 1), sy = 0.5f * static_cast<float>(a.H - 1);
-  for (int k = 0; first + k < last; ++k) {
-    const int s = k % kTmaStages, i = first + k;
-    mbar_wait(&full[wid][s], static_cast<uint32_t>(k / kTmaStages) & 1);
-    const int oy = i % a.Ho, band = (i / a.Ho) % p.bands, b = i / (a.Ho * p.bands);
-    const int ox = band * kBandPx + 2 * lane;
-    if (ox < a.Wo) {
-      const unsigned char* st = ring[wid][s];
-      px.at = static_cast<size_t>(oy) * a.Wo + ox;
-      float go[kC][BWD_PX];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const float2 v = reinterpret_cast<const float2*>(st + kBandPx * 8 + c * kBandPx * 4)[lane];
-        go[c][0] = v.x;
-        go[c][1] = v.y;
-      }
-      const float4 v = reinterpret_cast<const float4*>(st)[lane];
-      const float g[2 * BWD_PX] = {v.x, v.y, v.z, v.w};
-      int off[BWD_PX];
-      Coord cx[BWD_PX], cy[BWD_PX];
-#pragma unroll
-      for (int j = 0; j < BWD_PX; ++j) {
-        cx[j] = unnormalize(g[2 * j], a.W);
-        cy[j] = unnormalize(g[2 * j + 1], a.H);
-        off[j] = cy[j].i0 * a.W + cx[j].i0;
-      }
-      float dwx[BWD_PX], dwy[BWD_PX];
-#pragma unroll
-      for (int j = 0; j < BWD_PX; ++j) dwx[j] = dwy[j] = 0.0f;
-      warp_bwd_channels<kC, false>(a, px, static_cast<size_t>(b) * kC, go, off, cx, cy, dwx, dwy);
-      *reinterpret_cast<float4*>(a.d_grid + 2 * (b * px.P + px.at)) =
-          make_float4(cx[0].inside * dwx[0] * sx, cy[0].inside * dwy[0] * sy, cx[1].inside * dwx[1] * sx,
-                      cy[1].inside * dwy[1] * sy);
-    }
-    __syncwarp();
-    if (lane == 0 && i + kTmaStages < last) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue_band<kC>(p, ring[wid][s], &full[wid][s], i + kTmaStages, a.grid, a.g_out, a.Ho, a.Wo);
-    }
-  }
-}
-
-// ---- Band walkers without the ring (A/B variant): the next band row's
-// grid (and K2's gradient) loaded into registers while the current one is
-// computed ----
-template <typename T>
-__global__ void __launch_bounds__(32 * kBandWarps, WARP_BAND_MIN_BLOCKS)
-    warp_fwd_kernel_bandsl(const T* __restrict__ img, const float* __restrict__ grid, float* __restrict__ out, int C,
-                           int H, int W, int Ho, int Wo, BandPlan p) {
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int first = (blockIdx.x * kBandWarps + wid) * p.per_warp, last = min(first + p.per_warp, p.items);
-  const size_t HW = static_cast<size_t>(H) * W, P = static_cast<size_t>(Ho) * Wo;
-  auto at = [&](int i, int& b, int& oy, int& ox) {
-    oy = i % Ho;
-    const int band = (i / Ho) % p.bands;
-    b = i / (Ho * p.bands);
-    ox = band * kBandPx + 2 * lane;
-  };
-  auto fetch = [&](int i) {
-    int b, oy, ox;
-    at(i, b, oy, ox);
-    return ox < Wo ? __ldg(reinterpret_cast<const float4*>(grid + 2 * (b * P + static_cast<size_t>(oy) * Wo + ox)))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  float4 next = first < last ? fetch(first) : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = first; i < last; ++i) {
-    const float4 v = next;
-    if (i + 1 < last) next = fetch(i + 1);
-    int b, oy, ox;
-    at(i, b, oy, ox);
-    if (ox < Wo) {
-      const float g[2 * FWD_PX] = {v.x, v.y, v.z, v.w};
-      int off[FWD_PX];
-      float wx[FWD_PX], wy[FWD_PX];
-#pragma unroll
-      for (int j = 0; j < FWD_PX; ++j) {
-        const Coord cx = unnormalize(g[2 * j], W), cy = unnormalize(g[2 * j + 1], H);
-        off[j] = cy.i0 * W + cx.i0;
-        wx[j] = cx.w;
-        wy[j] = cy.w;
-      }
-      const T* src = img + b * C * HW;
-      float* dst = out + b * C * P + static_cast<size_t>(oy) * Wo + ox;
-      for (int c = 0; c < C; ++c) {
-        float o[FWD_PX];
-#pragma unroll
-        for (int j = 0; j < FWD_PX; ++j) {
-          const T* sp = src + c * HW + off[j];
-          float v00, v01, v10, v11;
-          load_pair(sp, v00, v01);
-          load_pair(sp + W, v10, v11);
-          const float top = v00 + (v01 - v00) * wx[j];
-          const float bot = v10 + (v11 - v10) * wx[j];
-          o[j] = top + (bot - top) * wy[j];
-        }
-        *reinterpret_cast<float2*>(dst + c * P) = make_float2(o[0], o[1]);
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kBandWarps, WARP_BAND_MIN_BLOCKS)
-    warp_bwd_kernel_bandsl(BwdArgs<T> a, BandPlan p) {
-  constexpr int kC = 3;
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int first = (blockIdx.x * kBandWarps + wid) * p.per_warp, last = min(first + p.per_warp, p.items);
-  BwdPixels px;
-  px.n = BWD_PX;
-  px.P = static_cast<size_t>(a.Ho) * a.Wo;
-  px.HW = static_cast<size_t>(a.H) * a.W;
-  const float sx = 0.5f * static_cast<float>(a.W - 1), sy = 0.5f * static_cast<float>(a.H - 1);
-  struct Streams {
-    float4 g;
-    float2 go[kC];
-  };
-  auto fetch = [&](int i) {
-    Streams s;
-    const int oy = i % a.Ho, band = (i / a.Ho) % p.bands, b = i / (a.Ho * p.bands);
-    const int ox = band * kBandPx + 2 * lane;
-    if (ox < a.Wo) {
-      const size_t at = static_cast<size_t>(oy) * a.Wo + ox;
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        s.go[c] = __ldg(reinterpret_cast<const float2*>(a.g_out + (static_cast<size_t>(b) * kC + c) * px.P + at));
-      s.g = __ldg(reinterpret_cast<const float4*>(a.grid + 2 * (b * px.P + at)));
-    }
-    return s;
-  };
-  Streams next;
-  if (first < last) next = fetch(first);
-  for (int i = first; i < last; ++i) {
-    const Streams cur = next;
-    if (i + 1 < last) next = fetch(i + 1);
-    const int oy = i % a.Ho, band = (i / a.Ho) % p.bands, b = i / (a.Ho * p.bands);
-    const int ox = band * kBandPx + 2 * lane;
-    if (ox >= a.Wo) continue;
-    px.at = static_cast<size_t>(oy) * a.Wo + ox;
-    float go[kC][BWD_PX];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      go[c][0] = cur.go[c].x;
-      go[c][1] = cur.go[c].y;
-    }
-    const float g[2 * BWD_PX] = {cur.g.x, cur.g.y, cur.g.z, cur.g.w};
-    int off[BWD_PX];
-    Coord cx[BWD_PX], cy[BWD_PX];
-#pragma unroll
-    for (int j = 0; j < BWD_PX; ++j) {
-      cx[j] = unnormalize(g[2 * j], a.W);
-      cy[j] = unnormalize(g[2 * j + 1], a.H);
-      off[j] = cy[j].i0 * a.W + cx[j].i0;
-    }
-    float dwx[BWD_PX], dwy[BWD_PX];
-#pragma unroll
-    for (int j = 0; j < BWD_PX; ++j) dwx[j] = dwy[j] = 0.0f;
-    warp_bwd_channels<kC, false>(a, px, static_cast<size_t>(b) * kC, go, off, cx, cy, dwx, dwy);
-    *reinterpret_cast<float4*>(a.d_grid + 2 * (b * px.P + px.at)) =
-        make_float4(cx[0].inside * dwx[0] * sx, cy[0].inside * dwy[0] * sy, cx[1].inside * dwx[1] * sx,
-                    cy[1].inside * dwy[1] * sy);
-  }
-}
-
-// The band split of a launch: as many warps as are resident at once, each
-// with an equal run of band rows.
-template <class Kernel>
-BandPlan plan_bands(Kernel kernel, int B, int Ho, int Wo, int& blocks) {
-  static int cached_dev = -1, resident = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != cached_dev) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kBandWarps, 0);
-    cached_dev = dev;
-    resident = std::max(1, per_sm * sms * kBandWarps);
-  }
-  BandPlan p;
-  p.bands = (Wo + kBandPx - 1) / kBandPx;
-  p.items = B * p.bands * Ho;
-  const int warps_max = std::min(p.items, resident);
-  p.per_warp = (p.items + warps_max - 1) / warps_max;
-  const int warps = (p.items + p.per_warp - 1) / p.per_warp;
-  blocks = (warps + kBandWarps - 1) / kBandWarps;
-  return p;
-}
-
-#ifdef WARP_BANDS_LDG
-#define WARP_FWD_BANDS warp_fwd_kernel_bandsl
-#define WARP_BWD_BANDS warp_bwd_kernel_bandsl
-#else
-#define WARP_FWD_BANDS warp_fwd_kernel_bands
-#define WARP_BWD_BANDS warp_bwd_kernel_bands
-#endif
-
-template <typename T>
-void launch_fwd_bands(const T* img, const float* grid, float* out, int B, int C, int H, int W, int Ho, int Wo,
-                      cudaStream_t stream) {
-  int blocks = 0;
-  const BandPlan p = plan_bands(WARP_FWD_BANDS<T>, B, Ho, Wo, blocks);
-  WARP_FWD_BANDS<T><<<blocks, 32 * kBandWarps, 0, stream>>>(img, grid, out, C, H, W, Ho, Wo, p);
-}
-
-template <typename T>
-void launch_bwd_bands(const BwdArgs<T>& a, cudaStream_t stream) {
-  int blocks = 0;
-  const BandPlan p = plan_bands(WARP_BWD_BANDS<T>, a.B, a.Ho, a.Wo, blocks);
-  WARP_BWD_BANDS<T><<<blocks, 32 * kBandWarps, 0, stream>>>(a, p);
-}
-
-// The row split of a launch: as many blocks as are resident at once (at
-// most one per row), each with an equal run of rows. Launch attributes are
-// set and occupancy read once per kernel and stage size.
-template <class Kernel>
-TmaRows plan_rows(Kernel kernel, int rows, int threads, uint32_t stage, bool prefetch, int& blocks) {
-  static int cached_dev = -1, cached_smem = -1, cached_threads = -1, resident = 0;
-  const int smem = kRowsLdg ? 0 : static_cast<int>(stage) * kTmaStages;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != cached_dev || smem != cached_smem || threads != cached_threads) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (kTmaBlocksPerSmCap > 0) per_sm = std::min(per_sm, kTmaBlocksPerSmCap);
-    cached_dev = dev;
-    cached_smem = smem;
-    cached_threads = threads;
-    resident = std::max(1, per_sm * sms);
-  }
-  TmaRows t;
-  t.rows = rows;
-  const int blocks_max = std::min(rows, resident);
-  t.per_block = (rows + blocks_max - 1) / blocks_max;
-  t.stage = stage;
-  t.prefetch = prefetch;
-  blocks = (rows + t.per_block - 1) / t.per_block;
-  return t;
-}
-
-inline uint32_t round_up(uint32_t n, uint32_t m) { return (n + m - 1) / m * m; }
-
-inline bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
-
-inline int row_threads(int Wo) { return static_cast<int>(round_up(static_cast<uint32_t>(Wo / 2), 32)); }
-
-template <typename T>
-bool image_rows_aligned(const T* img, int W) {
-  return aligned(img, 16) && (static_cast<size_t>(W) * sizeof(T)) % 16 == 0;
-}
-
-// K1's row walkers take the launch where the grid's rows are whole
-// 16-byte multiples on a 16-byte aligned grid, and the output takes the
-// template's 8-byte stores.
-bool tma_fwd_fits(const void* grid, const void* out, int Wo) {
-  return Wo % 2 == 0 && Wo <= kTmaMaxWo && aligned(grid, 16) && aligned(out, 8);
-}
-
-// K2's: no d_image, three channels, the grid's and the gradient's rows
-// whole 16-byte multiples on 16-byte aligned tensors, d_grid aligned for
-// its 16-byte stores.
-bool tma_bwd_fits(const void* grid, const void* g_out, const void* d_grid, const void* d_img, int C, int Wo) {
-  return d_img == nullptr && C == 3 && Wo % 4 == 0 && Wo <= kTmaMaxWo && aligned(grid, 16) && aligned(g_out, 16) &&
-         aligned(d_grid, 16);
-}
-
-template <typename T>
-void launch_fwd_rows(const T* img, const float* grid, float* out, int B, int C, int H, int W, int Ho, int Wo,
-                     cudaStream_t stream) {
-  const int threads = row_threads(Wo);
-  int blocks = 0;
-  const TmaRows t = plan_rows(warp_fwd_kernel_rows<T>, B * Ho, threads, round_up(Wo * 8u, 128),
-                              image_rows_aligned(img, W), blocks);
-  warp_fwd_kernel_rows<T><<<blocks, threads, kRowsLdg ? 0 : t.stage * kTmaStages, stream>>>(img, grid, out, C, H, W,
-                                                                                            Ho, Wo, t);
-}
-
-template <typename T>
-void launch_bwd_rows(const BwdArgs<T>& a, cudaStream_t stream) {
-  const int threads = row_threads(a.Wo);
-  int blocks = 0;
-  const TmaRows t = plan_rows(warp_bwd_kernel_rows<T>, a.B * a.Ho, threads, round_up(a.Wo * 20u, 128),
-                              image_rows_aligned(a.img, a.W), blocks);
-  warp_bwd_kernel_rows<T><<<blocks, threads, kRowsLdg ? 0 : t.stage * kTmaStages, stream>>>(a, t);
 }
 
 template <typename T>
@@ -1204,38 +447,12 @@ extern "C" int warp_bwd(const float* img, const float* grid, const float* g_out,
 
 // The bfloat16-image instances; d_img (null unless the image needs a
 // gradient) is a zeroed float32 buffer of the image's shape.
-// WARP_ROWS_OFF builds these as the template's instances alone (for A/B
-// timing against the row walkers).
 extern "C" int warp_fwd_bf16(const __nv_bfloat16* img, const float* grid, float* out, int B, int C, int H,
                              int W, int Ho, int Wo, void* stream) {
-#ifndef WARP_ROWS_OFF
-  if (B > 0 && Ho > 0 && Wo > 0 && tma_fwd_fits(grid, out, Wo)) {
-#ifdef WARP_BANDS
-    if (Wo % 4 == 0) {
-      launch_fwd_bands(img, grid, out, B, C, H, W, Ho, Wo, static_cast<cudaStream_t>(stream));
-      return static_cast<int>(cudaGetLastError());
-    }
-#endif
-    launch_fwd_rows(img, grid, out, B, C, H, W, Ho, Wo, static_cast<cudaStream_t>(stream));
-    return static_cast<int>(cudaGetLastError());
-  }
-#endif
   return warp_fwd_impl(img, grid, out, B, C, H, W, Ho, Wo, stream);
 }
 
 extern "C" int warp_bwd_bf16(const __nv_bfloat16* img, const float* grid, const float* g_out, float* d_grid,
                              float* d_img, int B, int C, int H, int W, int Ho, int Wo, void* stream) {
-#ifndef WARP_ROWS_OFF
-  if (B > 0 && Ho > 0 && Wo > 0 && tma_bwd_fits(grid, g_out, d_grid, d_img, C, Wo)) {
-#ifdef WARP_BANDS
-    launch_bwd_bands(BwdArgs<__nv_bfloat16>{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo},
-                     static_cast<cudaStream_t>(stream));
-#else
-    launch_bwd_rows(BwdArgs<__nv_bfloat16>{img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo},
-                    static_cast<cudaStream_t>(stream));
-#endif
-    return static_cast<int>(cudaGetLastError());
-  }
-#endif
   return warp_bwd_impl(img, grid, g_out, d_grid, d_img, B, C, H, W, Ho, Wo, stream);
 }

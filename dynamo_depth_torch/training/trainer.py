@@ -674,16 +674,16 @@ class Trainer:
         three (:meth:`_vis_panels`; under a process group the maxima are
         the global batch's, and every rank must call this together)."""
         p = self._vis_panels(batch)
+        color, recon, l1, disp, mask, depth = (p[k] for k in ("color", "recon", "l1", "disp", "mask", "depth"))
         ego, ind, tot = (1 - hsv_to_rgb(hsv) for hsv in p["wheels"])
 
         def rep3(x):
             return np.repeat(x, 3, axis=-1)
 
         grids = []
-        for j in range(min(p["color"].shape[0], self.B)):
-            rows = [np.concatenate([p["color"][j], p["recon"][j], rep3(p["l1"][j])], axis=1),
-                    np.concatenate([rep3(p["disp"][j]), rep3(p["mask"][j]), rep3(p["depth"][j] / p["depth"][j].max())],
-                                   axis=1),
+        for j in range(min(color.shape[0], self.B)):
+            rows = [np.concatenate([color[j], recon[j], rep3(l1[j])], axis=1),
+                    np.concatenate([rep3(disp[j]), rep3(mask[j]), rep3(depth[j] / depth[j].max())], axis=1),
                     np.concatenate([ego[j], ind[j], tot[j]], axis=1)]
             grids.append(np.clip(np.concatenate(rows, axis=0), 0, 1))
         return np.stack(grids)

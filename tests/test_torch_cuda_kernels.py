@@ -29,10 +29,8 @@ K1's and K2's bfloat16-image instances are held against the plain version
 on the same bfloat16 image, on such shapes, at the b8 step's size on the
 ego-motion grid, on grid entries exactly on the border, and with the image
 2 bytes off 4-byte alignment; and, bit for bit, against the float32
-instances on the rounded image where their row walkers run (more rows than
-resident blocks and fewer, runs longer than their ring, B of 1, 3 and 8, an
-odd Ho) and where a launch falls back to the template (odd Wo, Wo not a
-multiple of 4 for K2, rows wider than a stage, C other than 3 for K2, a grid
+instances on the rounded image, whose tiles differ from theirs (B of 1, 3
+and 8, Ho and Wo not multiples of the tile, odd Wo, C other than 3, a grid
 and gradient off 16-byte alignment).
 """
 
@@ -162,21 +160,19 @@ def test_bf16_warp_kernels_match_plain(dev, shape, kind):
 
 
 @pytest.mark.parametrize("shape,kind", [
-    ((8, 3, 192, 640, 192, 640), "ego"),  # the b8 step: more rows than resident blocks
-    ((1, 3, 24, 64, 20, 64), "uniform"),  # B=1: fewer rows than blocks
-    ((3, 3, 37, 70, 37, 68), "uniform"),  # B=3, an odd Ho
-    ((4, 3, 64, 128, 1000, 1024), "uniform"),  # the widest row: runs of 11 rows, the ring wraps
-    ((2, 3, 16, 48, 9, 33), "uniform"),  # odd Wo: the template
-    ((2, 3, 16, 48, 8, 66), "uniform"),  # Wo = 2 mod 4: K1's rows, K2's template
-    ((1, 3, 16, 48, 4, 1040), "uniform"),  # wider than a stage: the template
-    ((2, 1, 20, 40, 12, 40), "uniform"), ((2, 4, 20, 40, 12, 40), "uniform"),  # C != 3: K2's generic template
-    ((2, 3, 16, 48, 8, 64), "misaligned"),  # grid and gradient 4 bytes off 16-byte alignment: the template
+    ((8, 3, 192, 640, 192, 640), "ego"),  # the b8 step: 3,840 tiles, more than fit the card at once
+    ((1, 3, 24, 64, 20, 64), "uniform"),  # B=1: 6 tiles, Ho not a multiple of the 8-row tile
+    ((3, 3, 37, 70, 37, 68), "uniform"),  # B=3, odd Ho, Wo not a multiple of the 32-pixel tile
+    ((2, 3, 16, 48, 9, 33), "uniform"),  # odd Wo: scalar accesses
+    ((2, 3, 16, 48, 8, 66), "uniform"),
+    ((2, 1, 20, 40, 12, 40), "uniform"), ((2, 4, 20, 40, 12, 40), "uniform"),  # C != 3: K2's generic instance
+    ((2, 3, 16, 48, 8, 64), "misaligned"),  # grid and gradient 4 bytes off 16-byte alignment
 ])
-def test_bf16_row_walkers_are_the_float32_instances_on_the_rounded_image(dev, shape, kind):
-    """K1's and K2's bfloat16 instances, row walkers where the launch fits
-    them (``csrc/warp.cu``), template instances where not: the same float32
-    arithmetic after the taps, so bit-equal to the float32 instances on the
-    image rounded to bfloat16, and within the plain version's tolerances."""
+def test_bf16_instances_are_the_float32_instances_on_the_rounded_image(dev, shape, kind):
+    """K1's and K2's bfloat16 instances, with tiles and a register budget of
+    their own (``csrc/warp.cu``): the same float32 arithmetic after the taps
+    as the float32 instances, so bit-equal to theirs on the image rounded to
+    bfloat16, and within the plain version's tolerances."""
     B, C, H, W, Ho, Wo = shape
     g = torch.Generator(device=dev).manual_seed(16)
     img = torch.rand(B, C, H, W, device=dev, generator=g).bfloat16()
