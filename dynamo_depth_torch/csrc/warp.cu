@@ -102,7 +102,7 @@
 //   mbarriers, or by plain loads one row ahead; L2 prefetch of the source
 //   rows, of the next wave's streams or of every input at the start; other
 //   tiles and register budgets. The TMA ring shrank the L1 that the tap
-//   gathers hit, and a walker's rows ran one after another: 15-200% slower
+//   gathers hit, and a walker's rows ran one after another: 15-235% slower
 //   with a cold L2 than the float32 instances' tiles.
 //
 // Layouts: image (B, C, H, W), grid (B, Ho, Wo, 2) as (x, y), out and g_out
