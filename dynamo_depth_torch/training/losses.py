@@ -28,6 +28,7 @@ from dynamo_depth_torch.ops.geometry import backproject, depth_to_disp, disp_to_
 from dynamo_depth_torch.ops.ground_plane import ground_plane_fit
 from dynamo_depth_torch.ops.photometric import reprojection_loss, smooth_loss
 from dynamo_depth_torch.ops.warp import grid_sample, resize_bilinear
+from dynamo_depth_torch.utils.spans import span
 
 LOSS_TERMS = ("p_photo", "d_smooth", "d_ground", "c_smooth", "c_consistency", "m_sparsity", "m_smooth")
 
@@ -242,7 +243,8 @@ def compute_losses(
                 norm_disp = disp / (torch.mean(disp, dim=(2, 3), keepdim=True) + 1e-7)
                 ps["d_smooth"] = smooth_loss(norm_disp, color_s) / (2 ** scale)
             if cfg.g_d_ground > 0 and bool_MotMask:
-                _, disp_diff, _ = process_ground(cfg, inputs, outputs, scale, generator)
+                with span("dynamo.ground_plane"):
+                    _, disp_diff, _ = process_ground(cfg, inputs, outputs, scale, generator)
                 disp_diff = torch.minimum(disp_diff, torch.zeros_like(disp_diff))  # below ground is negative
                 ps["d_ground"] = -1.0 * torch.mean(disp_diff) / (2 ** scale)
 

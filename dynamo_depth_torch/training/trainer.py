@@ -50,6 +50,7 @@ from dynamo_depth_torch.parallel import dist as pdist
 from dynamo_depth_torch.training import checkpoint as ckpt
 from dynamo_depth_torch.training.losses import compute_losses, view_synthesis
 from dynamo_depth_torch.utils.io import join_dir, sec_to_hm_str
+from dynamo_depth_torch.utils.spans import span
 from dynamo_depth_torch.utils.vis import hsv_to_rgb, vis_motion
 
 PHASES = ("disp_init", "motion_init", "mask_init", "fine_tune")
@@ -207,11 +208,12 @@ class Trainer:
         """Colour pyramid ('color', 0, s) by recursive antialiased bicubic
         halving with clamping (Trainer.py:729-734), on the device."""
         out = dict(inputs)
-        for scale in self.cfg.scales:
-            if scale == 0:
-                continue
-            h, w = self.H // (2 ** scale), self.W // (2 ** scale)
-            out[("color", 0, scale)] = resize_bicubic_aa(out[("color", 0, scale - 1)], (h, w))
+        with span("dynamo.pyramid"):
+            for scale in self.cfg.scales:
+                if scale == 0:
+                    continue
+                h, w = self.H // (2 ** scale), self.W // (2 ** scale)
+                out[("color", 0, scale)] = resize_bicubic_aa(out[("color", 0, scale - 1)], (h, w))
         return out
 
     def get_dataset(self, filenames, is_train=False, load_depth=False, load_mask=False, img_type=None):
@@ -302,14 +304,17 @@ class Trainer:
 
     def _forward_losses(self, inputs: Dict, generator: torch.Generator, step: int, net=None):
         """The model's outputs and the losses of the rows of ``inputs``."""
-        outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator, net)
-        view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
-                       automask=self.automask)
-        losses = compute_losses(
-            self.cfg, inputs, outputs, generator,
-            bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, automask=self.automask,
-            trainable_networks=self.networks, step_in_phase=step, steps_per_epoch=self.steps_per_epoch,
-        )
+        with span("dynamo.networks"):
+            outputs = self._model_outputs(inputs, self.bool_cmp, self.bool_mask, generator, net)
+        with span("dynamo.view_synthesis"):
+            view_synthesis(self.cfg, inputs, outputs, bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask,
+                           automask=self.automask)
+        with span("dynamo.losses"):
+            losses = compute_losses(
+                self.cfg, inputs, outputs, generator,
+                bool_CmpFlow=self.bool_cmp, bool_MotMask=self.bool_mask, automask=self.automask,
+                trainable_networks=self.networks, step_in_phase=step, steps_per_epoch=self.steps_per_epoch,
+            )
         return outputs, losses
 
     def train_step(self, batch: Dict, generator: torch.Generator, step: int) -> Dict[str, torch.Tensor]:
@@ -318,17 +323,29 @@ class Trainer:
         draws drop-path masks, RANSAC hypotheses and the automask noise;
         ``step`` is the step within the phase (loss-weight ramp). Returns
         the detached losses dict of ``compute_losses``, averaged over the
-        ranks under a process group (each rank's ``batch`` is its own rows)."""
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_at(self.opt_steps)
-        self.optimizer.zero_grad(set_to_none=True)
-        self.model.train()
-        _, losses = self._forward_losses(self.process_inputs_device(batch), generator, step, self._train_net())
-        losses["loss"].backward()
-        self.optimizer.step()
-        self.opt_steps += 1
-        self._average_batch_stats()
-        return self._average_losses(losses)
+        ranks under a process group (each rank's ``batch`` is its own rows).
+        The step's spans (``utils/spans.py``) are ``dynamo.train_step``,
+        carrying ``step``, and inside it ``dynamo.pyramid``,
+        ``dynamo.networks``, ``dynamo.view_synthesis``, ``dynamo.losses``
+        (holding ``dynamo.ground_plane``), ``dynamo.backward``,
+        ``dynamo.optimizer`` and ``dynamo.batch_stats``."""
+        with span("dynamo.train_step", step):
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_at(self.opt_steps)
+            self.optimizer.zero_grad(set_to_none=True)
+            self.model.train()
+            # Neither the outputs nor the losses keep the graph past the root
+            # span: freeing it is part of the step's host time.
+            losses = self._forward_losses(self.process_inputs_device(batch), generator, step, self._train_net())[1]
+            with span("dynamo.backward"):
+                losses["loss"].backward()
+            with span("dynamo.optimizer"):
+                self.optimizer.step()
+            self.opt_steps += 1
+            with span("dynamo.batch_stats"):
+                self._average_batch_stats()
+            losses = self._average_losses(losses)
+        return losses
 
     def _average_losses(self, losses: Dict) -> Dict:
         """Detached losses, averaged over the ranks: every rank scores the
@@ -378,7 +395,7 @@ class Trainer:
                 self.print()
                 loader = self._make_train_loader(epoch_seed=cfg.seed + 1000 * epoch + 101 * PHASES.index(phase))
                 loader.set_epoch(epoch)
-                data_t, comp_t = 0.0, 0.0
+                data_t, step_t = 0.0, 0.0
                 t0 = time.time()
                 for batch_idx, batch in enumerate(self._prefetch(loader)):
                     data_t += time.time() - t0
@@ -387,12 +404,12 @@ class Trainer:
                     late_freq = 10 * cfg.log_frequency
                     if (batch_idx % cfg.log_frequency == 0 and self.step < late_freq) or self.step % late_freq == 0:
                         loss_val = float(losses["loss"])
-                        self.log_time(batch_idx, max(time.time() - t0, 1e-9), loss_val, data_t, comp_t)
-                        data_t, comp_t = 0.0, 0.0
+                        self.log_time(batch_idx, max(time.time() - t0, 1e-9), loss_val, data_t, step_t)
+                        data_t, step_t = 0.0, 0.0
                         self.log_scalars("train", losses)
                         self.log_vis("train", batch)
                         self.val()
-                    comp_t += time.time() - t0
+                    step_t += time.time() - t0
                     self.g_step += 1
                     self.step += 1
                     t0 = time.time()
@@ -711,7 +728,11 @@ class Trainer:
         except Exception as e:  # a logging failure does not stop the run, as in the JAX package
             self.print(f"wandb.log failed: {e!r}")
 
-    def log_time(self, batch_idx, duration, loss, data_time, gpu_time):
+    def log_time(self, batch_idx, duration, loss, data_time, step_time):
+        """Print the step's rate and the time since the last line, split into
+        the wait for the loader's batches (``data_time``) and the host time of
+        the calls between them (``step_time``: ``train_step`` and the logging,
+        timed without a synchronisation, so not the card's time)."""
         if not pdist.is_main_process():
             return
         samples_per_sec = self.global_B / duration
@@ -719,11 +740,11 @@ class Trainer:
         left = (self.num_total_steps / self.step - 1.0) * time_sofar if self.step > 0 else 0
         self.history.append({"mode": "time", "phase": self.phase, "g_step": self.g_step, "epoch": self.epoch,
                              "batch": batch_idx, "loss": loss, "examples_per_s": samples_per_sec,
-                             "data_s": data_time, "compute_s": gpu_time})
+                             "data_s": data_time, "compute_s": step_time})
         print(
             f"epoch {self.epoch:>3} | batch {batch_idx:>6} | examples/s: {samples_per_sec:5.1f} "
             f"| loss: {loss:.5f} | time elapsed: {sec_to_hm_str(time_sofar)} "
-            f"| time left: {sec_to_hm_str(left)} | CPU/GPU time: {data_time:0.1f}s/{gpu_time:0.1f}s"
+            f"| time left: {sec_to_hm_str(left)} | data wait/step host time: {data_time:0.1f}s/{step_time:0.1f}s"
         )
 
     def print(self, s=""):
