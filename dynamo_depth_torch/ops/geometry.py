@@ -11,6 +11,8 @@ pins ``Precision.HIGHEST`` for the same reason).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -120,6 +122,16 @@ def backproject(depth, inv_K):
     return unit_rays(inv_K, H, W) * depth.reshape(B, H * W, 1)
 
 
+@functools.lru_cache(maxsize=32)
+def _pixel_scale(width: int, height: int, dtype: torch.dtype, device: torch.device):
+    """The divisor ``[width - 1, height - 1]`` of :func:`project`, built once
+    per size, dtype and device: a fresh one is a blocking host-to-device copy
+    on every call. Built outside inference mode, so that autograd may save it
+    whichever mode the first caller ran in."""
+    with torch.inference_mode(False):
+        return torch.tensor([width - 1, height - 1], dtype=dtype, device=device)
+
+
 def project(points, K, T=None, *, height, width, eps=1e-7):
     """Project camera-frame points to normalized sample coords + ego-flow.
 
@@ -139,6 +151,8 @@ def project(points, K, T=None, *, height, width, eps=1e-7):
     uvw = _bmv(K[:, :3, :3], moved) + K[:, None, :3, 3]
 
     pix = uvw[..., :2] / (uvw[..., 2:3] + eps)
-    pix = pix / torch.tensor([width - 1, height - 1], dtype=pix.dtype, device=pix.device)
+    # True division by a tensor, not by Python scalars: CUDA divides by a
+    # scalar as a product with its reciprocal, which can move the last bit.
+    pix = pix / _pixel_scale(width, height, pix.dtype, pix.device)
     pix = (pix - 0.5) * 2.0
     return pix.reshape(B, height, width, 2), moved - points

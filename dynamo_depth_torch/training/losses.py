@@ -203,7 +203,8 @@ def compute_losses(
     losses: Dict[str, torch.Tensor] = {"loss": zero()}
     for term in LOSS_TERMS:
         losses[f"loss_term/{term}"] = zero()
-        losses[f"loss_coef/{term}"] = torch.tensor(coefs[term], dtype=torch.float32, device=dev)
+        # A fill, not torch.tensor: that would be a blocking host-to-device copy.
+        losses[f"loss_coef/{term}"] = torch.full((), coefs[term], dtype=torch.float32, device=dev)
     for scale in cfg.scales:
         losses[f"loss_term/{scale}"] = zero()
 

@@ -11,6 +11,7 @@ from dynamo_depth_torch.ops import geometry as tg
 from dynamo_depth_torch.ops.ground_plane import ground_plane_fit as t_fit
 from dynamo_depth_tpu.ops import geometry as jg
 from dynamo_depth_tpu.ops.ground_plane import ground_plane_fit as j_fit
+from torch_project_cases import assert_project_bit_equal, project_inputs
 
 # Exact-fp32 products on both sides, summed in another order: ~1e-6 relative.
 RTOL, ATOL = 1e-5, 1e-6
@@ -89,3 +90,33 @@ def test_ground_plane_draw_uses_generator():
     a = t_fit(pts, torch.Generator().manual_seed(3))[1]
     b = t_fit(pts, torch.Generator().manual_seed(3))[1]
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("height,width", [(192, 640), (7, 13)])
+def test_project_divisor_memoised(height, width, dtype):
+    """``project`` divides by one memoised ``[W - 1, H - 1]`` per size and
+    dtype, which carries no gradient, and is bit-equal to dividing by a
+    fresh tensor, forward and backward."""
+    cpu = torch.device("cpu")
+    tg._pixel_scale.cache_clear()
+    assert_project_bit_equal(height, width, dtype, cpu)
+    info = tg._pixel_scale.cache_info()
+    assert (info.misses, info.hits) == (1, 1), "two calls, one divisor"
+    divisor = tg._pixel_scale(width, height, dtype, cpu)
+    assert divisor is tg._pixel_scale(width, height, dtype, cpu)
+    assert not divisor.requires_grad and divisor.dtype == dtype
+    assert torch.equal(divisor, torch.tensor([width - 1, height - 1], dtype=dtype))
+
+
+def test_project_divisor_from_inference_mode_serves_autograd():
+    """A divisor first built under ``torch.inference_mode`` can still be
+    saved for a later backward."""
+    tg._pixel_scale.cache_clear()
+    points, K, _ = project_inputs(5, 6, torch.float32, torch.device("cpu"))
+    with torch.inference_mode():
+        tg.project(points, K, height=5, width=6)
+    points.requires_grad_(True)
+    pix, _ = tg.project(points, K, height=5, width=6)
+    pix.sum().backward()
+    assert torch.isfinite(points.grad).all()

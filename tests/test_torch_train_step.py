@@ -243,6 +243,26 @@ def test_losses_match(step_results):
         assert (got[f"loss_term/{term}"] > 0) == (term in ACTIVE[step_results.phase]), term
 
 
+@pytest.mark.parametrize("step", [0, STEP, 50])  # the ramp at 0, 0.15 and past its end
+def test_loss_coefficient_entries(step):
+    """Each ``loss_coef/<term>`` is the float32 scalar that
+    ``torch.tensor(coef, dtype=torch.float32)`` gives of the step's ramped
+    coefficient."""
+    cfg = TConfig(**KW)
+    g = torch.Generator().manual_seed(0)
+    image = lambda: torch.rand(B, 3, H, W, generator=g)  # noqa: E731
+    target = image()
+    inputs = {("color", 0, s): target for s in cfg.scales}
+    outputs = {("color", f, s): image() for f in cfg.frame_ids[1:] for s in cfg.scales}
+    outputs.update({("disp", 0, s): torch.rand(B, 1, H, W, generator=g) for s in cfg.scales})
+    losses = t_losses.compute_losses(cfg, inputs, outputs, g, bool_CmpFlow=False, bool_MotMask=False, automask=False,
+                                     trainable_networks=(), step_in_phase=step, steps_per_epoch=STEPS_PER_EPOCH)
+    coefs = t_losses.loss_coefficients(cfg, step, STEPS_PER_EPOCH)
+    for term, coef in coefs.items():
+        got, want = losses[f"loss_coef/{term}"], torch.tensor(coef, dtype=torch.float32)
+        assert got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want), term
+
+
 @pytest.mark.parametrize("module_name", MODULE_NAMES)
 def test_gradients_match(step_results, module_name):
     r = step_results
