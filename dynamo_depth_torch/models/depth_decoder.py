@@ -1,10 +1,12 @@
-"""Depth decoders (reference ``networks/depth_decoder.py``), NCHW.
+"""Depth decoders (reference ``networks/depth_decoder.py``).
 
 ``DepthDecoder``: the Monodepth2 5-level U-Net decoder with skips, nearest x2
 upsampling and a sigmoid disparity head at each scale (depth_decoder.py:10-55);
 scale-s disparity is at 1/2^s of the input resolution. Its submodules carry
 the reference's names, ``upconv_{i}_{j}`` and ``dispconv_{s}``, so the
 state-dict keys are the reference's (``upconv_4_0.conv.conv.weight``, ...).
+On a CUDA card its weights are channels-last, as the ResNet encoder's
+features are (``models/model.py::lay_out``).
 
 ``LiteDepthDecoder``: the Lite-Mono decoder (depth_decoder.py:58-115):
 3 levels (channels = encoder/2), bilinear x2 upsampling, and an extra
@@ -12,7 +14,8 @@ bilinear x2 upsample before each sigmoid head, so scale-s disparity is at
 1/2^s of the full input resolution. The convs live in one ``decoder``
 ModuleList in the reference's order — upconv(2,0), (2,1), (1,0), (1,1),
 (0,0), (0,1), then one dispconv per scale — so the state-dict keys are the
-reference's (``decoder.0.conv.conv.weight``, ...).
+reference's (``decoder.0.conv.conv.weight``, ...). It stays NCHW, as
+LiteMono's features are.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Shared building blocks (reference ``networks/layers.py:85-120``), NCHW."""
+"""Shared building blocks (reference ``networks/layers.py:85-120``), in NCHW
+or channels-last (NHWC), as their input is laid out."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ class Conv3x3(nn.Module):
 
     def forward(self, x):
         if min(x.shape[-2:]) > 1:
-            return self.conv(x)
+            return F.conv2d(reflect_pad1(x), self.conv.weight, self.conv.bias)
         for dim, pad in ((-1, (1, 1, 0, 0)), (-2, (0, 0, 1, 1))):
             x = F.pad(x, pad, mode="reflect" if x.shape[dim] > 1 else "replicate")
         return F.conv2d(x, self.conv.weight, self.conv.bias)
@@ -75,6 +76,24 @@ class DropPath(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
         mask = (torch.rand(shape, generator=generator, device=x.device) < keep).to(x.dtype)
         return x / keep * mask
+
+
+def memory_format(x):
+    """The memory format ``x`` is laid out in: ``torch.channels_last`` where
+    its strides are NHWC's and not NCHW's too, else NCHW's."""
+    if not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def reflect_pad1(x):
+    """Reflection padding of one pixel on each side of H and W, laid out as
+    ``x`` is. CUDA's 2-D reflection padding returns NCHW whatever its input;
+    a channels-last map is padded as the (H, W, C) volume of its NHWC view,
+    C unpadded, and so stays channels-last."""
+    if memory_format(x) == torch.channels_last:
+        return F.pad(x.permute(0, 2, 3, 1)[:, None], (0, 0, 1, 1, 1, 1), mode="reflect")[:, 0].permute(0, 3, 1, 2)
+    return F.pad(x, (1, 1, 1, 1), mode="reflect")
 
 
 def normalize_image(x):

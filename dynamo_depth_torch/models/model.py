@@ -1,5 +1,6 @@
 """Model container bundling the seven sub-modules (reference
-``networks/model.py:15-230``), NCHW.
+``networks/model.py:15-230``). Its inputs and outputs are NCHW; inside, the
+networks are laid out for the device they are on (``lay_out``).
 
 Logical networks -> modules (model.py:36-41), with the motion encoder shared
 between the complete-flow and motion-mask decoders:
@@ -50,6 +51,30 @@ def modules_for_networks(network_names: Sequence[str]) -> list:
     return sorted({m for n in network_names for m in NETWORK2MODULES[n]})
 
 
+def memory_format_for(device: torch.device) -> torch.memory_format:
+    """The layout of the ResNet family's weights on ``device``: channels-last
+    on a CUDA card, where cuDNN runs these convolutions faster in NHWC (the
+    bottlenecks' 1x1s, the motion decoders' full-resolution 3x3s); NCHW
+    elsewhere, where the CPU's float32 sums then run in the order of the
+    JAX package's comparisons and the benchmark's reference."""
+    return torch.channels_last if device.type == "cuda" else torch.contiguous_format
+
+
+def lay_out(module: nn.Module, memory_format: torch.memory_format) -> None:
+    """Lay every ResNet trunk (``layer1``-``layer4``; the stem's conv1 keeps
+    NCHW for its 3-9 input channels) and every Monodepth2 decoder that
+    consumes their features (``DepthDecoder``, ``PoseDecoder``,
+    ``MotionDecoder``) inside ``module`` out in ``memory_format``. Their maps
+    follow the weights; LiteMono and its decoder, depthwise convolutions over
+    ``(B, C, H*W)`` views, stay NCHW."""
+    for m in module.modules():
+        if isinstance(m, ResnetEncoder):
+            for stage in (m.encoder.layer1, m.encoder.layer2, m.encoder.layer3, m.encoder.layer4):
+                stage.to(memory_format=memory_format)
+        elif isinstance(m, (DepthDecoder, PoseDecoder, MotionDecoder)):
+            m.to(memory_format=memory_format)
+
+
 class DynamoModel(nn.Module):
     """The seven modules, every parameter drawn from the distribution the
     JAX package gives it (``models/init.py``), from ``generator`` (None:
@@ -80,6 +105,17 @@ class DynamoModel(nn.Module):
         uncovered = init_like_jax(self, generator)
         if uncovered:
             raise RuntimeError(f"no initialisation rule covers {uncovered}")
+        self._lay_out()
+
+    def _apply(self, fn, recurse=True):
+        # Every move (``.to``, ``.cuda``, ``.cpu``) lays the networks out
+        # again for the device they land on.
+        super()._apply(fn, recurse)
+        self._lay_out()
+        return self
+
+    def _lay_out(self):
+        lay_out(self, memory_format_for(self.pose_enc.encoder.conv1.weight.device))
 
     def predict_depths(self, inputs, outputs, generator):
         frames = list(self.frame_ids)

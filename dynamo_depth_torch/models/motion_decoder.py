@@ -1,4 +1,4 @@
-"""Motion decoder (reference ``networks/motion_decoder.py``), NCHW.
+"""Motion decoder (reference ``networks/motion_decoder.py``).
 
 Coarse-to-fine refinement of a motion field seeded from the (detached)
 ego-motion vector: a 1x1 conv maps ``100 * ego_motion`` (6-vector) to the
@@ -8,6 +8,12 @@ encoder feature, passed through two 3x3 convs, reduced by a 1x1 conv over
 the concat of both conv outputs, and added residually
 (motion_decoder.py:36-62). Heads emit ``0.01 * field`` as either a 3-channel
 complete flow or a 1-channel motion logit + sigmoid mask per scale.
+
+Layout: on a CUDA card every weight is channels-last, as the ResNet
+encoder's features are (``models/model.py::lay_out``); the level fed by the
+raw stacked frames too, where cuDNN runs the 3x3 convolutions over 9-12
+channels at full resolution 3x faster in NHWC. The upsampled field takes the
+layout of the map it is concatenated with, and the outputs leave in NCHW.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from dynamo_depth_torch.models.layers import memory_format
 from dynamo_depth_torch.ops.warp import resize_bilinear
 
 
@@ -48,7 +55,7 @@ class MotionDecoder(nn.Module):
         per_level = []
         for ii in range(self.num_levels):
             feat = pyramid[-1 - ii]
-            up = resize_bilinear(field, feat.shape[2:])
+            up = resize_bilinear(field, feat.shape[2:]).contiguous(memory_format=memory_format(feat))
             conv0, conv1 = getattr(self, f"refine_motion_conv{ii}")
             c1 = conv0(torch.cat([up, feat], dim=1))
             c2 = conv1(c1)
@@ -57,7 +64,7 @@ class MotionDecoder(nn.Module):
 
         outputs = {}
         for scale in self.scales:
-            m_raw = 0.01 * per_level[self.num_levels - 1 - scale]
+            m_raw = (0.01 * per_level[self.num_levels - 1 - scale]).contiguous()
             if self.out_dim == 1:
                 outputs[("motion_prob", scale)] = m_raw
                 outputs[("motion_mask", scale)] = torch.sigmoid(m_raw)

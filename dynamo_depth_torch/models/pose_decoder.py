@@ -1,8 +1,9 @@
-"""Pose decoder (reference ``networks/pose_decoder.py``), NCHW.
+"""Pose decoder (reference ``networks/pose_decoder.py``).
 
 1x1 squeeze to 256ch + ReLU, two 3x3 convs + ReLU, a 1x1 head to
 6*num_frames, global spatial mean, and the 0.01 output scaling
-(pose_decoder.py:16-44). Consumes the last feature of the pose encoder.
+(pose_decoder.py:16-44). Consumes the last feature of the pose encoder; on a
+CUDA card both are channels-last (``models/model.py::lay_out``).
 """
 
 from __future__ import annotations

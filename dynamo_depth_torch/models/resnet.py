@@ -1,10 +1,18 @@
-"""ResNet feature encoder (reference ``networks/resnet_encoder.py``), NCHW.
+"""ResNet feature encoder (reference ``networks/resnet_encoder.py``).
 
 The torchvision trunk under an ``encoder.`` prefix, so the state-dict keys
 are the reference's (``encoder.conv1.weight``, ``encoder.layer1.0.bn1...``).
 Returns the 5-level pyramid [relu1 (1/2), layer1 (1/4), layer2 (1/8),
 layer3 (1/16), layer4 (1/32)] with the (x-0.45)/0.225 input normalization.
 ``num_input_images > 1`` widens conv1 to stacked RGB frames.
+
+Layout: the stem's conv1 takes the stacked frames (3, 6 or 9 channels) in
+NCHW, and its output takes the layout of ``layer1``-``layer4``'s weights,
+which ``models/model.py::lay_out`` sets: channels-last (NHWC) on a CUDA
+card, so that every feature of the pyramid is, and NCHW elsewhere. On an
+H100, cuDNN runs the trunk's 1x1 and most of its 3x3 convolutions faster in
+NHWC (the bottleneck's 64 -> 256 expansion at batch 36, 48x160, 5x), and the
+stem's 7x7 over a few channels slower.
 """
 
 from __future__ import annotations
@@ -13,7 +21,7 @@ import numpy as np
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dynamo_depth_torch.models.layers import BatchNorm2d, normalize_image
+from dynamo_depth_torch.models.layers import BatchNorm2d, memory_format, normalize_image
 
 _BLOCKS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3], 101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 _BOTTLENECK = {18: False, 34: False, 50: True, 101: True, 152: True}
@@ -85,7 +93,8 @@ class _Trunk(nn.Module):
 
 class ResnetEncoder(nn.Module):
     """5-level feature pyramid encoder over ``num_input_images`` stacked RGB
-    frames (NCHW input with 3 * num_input_images channels)."""
+    frames (NCHW input with 3 * num_input_images channels); the features are
+    laid out as the trunk's weights."""
 
     def __init__(self, num_layers=18, num_input_images=1):
         super().__init__()
@@ -100,6 +109,9 @@ class ResnetEncoder(nn.Module):
             raise ValueError(f"expected {3 * self.num_input_images} input channels, got {x.shape[1]}")
         e = self.encoder
         x = F.relu(e.bn1(e.conv1(normalize_image(x))))
+        # layer1's 3x3 weight tells the trunk's layout (a 1x1 weight reads
+        # the same in both).
+        x = x.contiguous(memory_format=memory_format(e.layer1[0].conv2.weight))
         features = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage in (e.layer1, e.layer2, e.layer3, e.layer4):
