@@ -1,5 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: every check holds
+the port on the card to its plain versions, to the CPU or to its contracts.
+The port is timed by ``python3 -m benchmark.run`` (``BENCHMARK.json``), not
+here.
 
     python3 chip_smoke.py
 
@@ -13,40 +16,29 @@ Phases (any failure exits non-zero, nothing is caught):
    the warp on two grids, a uniform random one (every tap in its own
    cache sector) and a stand-in for a trained model's ego-motion (identity
    plus ego-motion from a smooth 5-80 m depth,
-   ``training/synthetic.py::ego_motion_grid``); and at exact ties, where the
-   kernels take the JAX package's subgradients as the plain versions do: K4
-   where pred equals target on a textured image, K2 on a grid whose entries
-   beyond the border are clipped to exactly -1 or 1;
-4. time every kernel, its plain version and the one PyTorch call that
-   computes the same function where there is one (device time from the
-   profiler, and CUDA events around one call) beside its bound: the bytes it
-   must move over the card's memory rate, or its operations over the card's
-   float32 rate; the warp on both grids, with the ego-motion grid's
-   displacement; the kernels and the library calls also with a cold L2
-   (a 64 MB buffer overwritten before each call);
+   ``training/synthetic.py::ego_motion_grid``);
+4. the same at exact ties, where the kernels take the JAX package's
+   subgradients as the plain versions do: K4 where pred equals target on a
+   textured image, K2 on a grid whose entries beyond the border are clipped
+   to exactly -1 or 1;
 5. one ``fine_tune`` step on the card against the same step on the CPU (the
    plain versions) from the same weights at 64x96;
 6. the main path: the LiteMono ``fine_tune`` step at 192x640, batch 3,
-   float32 (KITTI headline config, random weights from seed 0): 2 warm-up
-   and 5 timed steps, finite losses, moving weights, and the launches per
-   step of each of the four kernels that ``cfg.scales`` gives (2 source
-   frames per scale: 6); then one profiled step, with each kernel's
-   own device time inside it; then one more step whose six warp inputs are
-   captured and saved to ``build/chip_smoke/step_warp_inputs.pt`` (for
-   ``bench/kernel_ab.py --step-inputs``), with each grid's displacement and
-   the warp kernels and ``F.grid_sample``'s forward and backward
-   (``grid_sampler_2d``) timed alone on them, with a warm and a cold L2;
+   float32 (KITTI headline config, random weights from seed 0): 7 steps
+   with finite losses, moving weights, and the launches per step of each of
+   the four kernels that ``cfg.scales`` gives (2 source frames per scale:
+   6); then one more step whose six warp inputs are captured: images of the
+   batch's shape and finite grids;
 7. the curriculum from the port's entry point,
    ``dynamo_depth_torch.train.main``, on the vendored ``assets/tiny_kitti``
    (LiteMono, 192x640, batch 3, float32, one epoch of 3 steps per phase, one
    validation batch per step, a split under ``build/chip_smoke``): which
    decoder loaded the images, each phase's kernel launches per step against
    the count that phase must make, finite losses, the trainable modules'
-   weights moved and the frozen ones' bit-identical, ms/step and the
-   data-wait and compute time of each phase, peak memory, four checkpoint
-   folders in the reference's layout, ``fine_tune_00`` loaded into a fresh
-   trainer with the same state dict, and one more ``fine_tune`` step from it
-   with ``--load_ckpt ... --resume_optim``;
+   weights moved and the frozen ones' bit-identical, peak memory, four
+   checkpoint folders in the reference's layout, ``fine_tune_00`` loaded
+   into a fresh trainer with the same state dict, and one more
+   ``fine_tune`` step from it with ``--load_ckpt ... --resume_optim``;
 8. the eval path from ``fine_tune_00`` at 192x640, batch 3, through each
    entry point's ``main(..., device=...)``: depth on ``tiny_kitti`` (Part 1)
    and ``tiny_waymo`` (Parts 1 and 2), motion segmentation on ``tiny_waymo``
@@ -57,107 +49,98 @@ Phases (any failure exits non-zero, nothing is caught):
    tp/fp/fn and the FP tally to 1e-3 of the pixels, precision/recall/f1 to
    1e-3, thresholds equal, odometry to 1e-4 relative, frames within one level on
    99.9% of the pixels); no launch of the four kernels during the card's
-   run, its peak memory, the plot files written and not written, and
-   ``Trainer.predict``'s device ms per batch for each of its three flag
-   settings (median of 5 after 2 warm-ups);
+   run, its peak memory, the plot files written and not written;
 9. monodepthv2 (ResNet-18 depth encoder, Monodepth2 decoder, 4 scales):
    the 64x96 step on the card against the CPU as in phase 5; the
-   ``fine_tune`` step at 192x640, batch 3, float32, timed as phase 6 with 8
-   launches per step of each kernel, and profiled; the curriculum from the
-   entry point on tiny_kitti with ``--depth_model monodepthv2``, 2 steps per
-   phase (8 launches per step, 16 of K3 in disp_init), checked as phase 7;
+   ``fine_tune`` step at 192x640, batch 3, float32, checked as phase 6 with
+   8 launches per step of each kernel; the curriculum from the entry point
+   on tiny_kitti with ``--depth_model monodepthv2``, 2 steps per phase (8
+   launches per step, 16 of K3 in disp_init), checked as phase 7;
    ``eval.depth`` of its ``fine_tune_00`` on the card and the CPU, tables
    compared as in phase 8;
 10. bfloat16: the LiteMono ``fine_tune`` step at 192x640, batch 3, with
    ``compute_dtype="bfloat16"`` from phase 6's seed-0 weights: one step
    against a float32 step from the same weights, batch and draws (each loss
    term that RANSAC does not enter within ``BF16_LOSS_TOL``; d_ground and
-   the totals finite), then timed and profiled as phase 6 (still
-   6 launches per step: the kernels take the float32 outputs), beside phase
-   6's numbers; one bfloat16 monodepthv2 step with finite losses;
+   the totals finite), then checked as phase 6 (still 6 launches per step:
+   the kernels take the float32 outputs); one bfloat16 monodepthv2 step
+   with finite losses;
 11. data parallelism over ``torch.distributed``, each launch a subprocess
    ``python -m torch.distributed.run ... chip_smoke.py --ddp-worker <name>
    <dir>`` killed after ``DDP_TIMEOUT_S``: (a) at world size 1 over NCCL,
    the curriculum from the entry point as phase 7 runs it (2 steps per
    phase, the launches per step, weights moved or bit-identical,
-   checkpoints) through ``DistributedDataParallel``, its ms/step beside
-   phase 7's; (b) two ranks sharing the card over gloo (NCCL refuses two
-   ranks on one card): 3 ``fine_tune`` steps at 192x640, batch 3 per rank,
-   6 launches of each kernel per rank-step, parameters and BatchNorm
-   buffers bit-identical across the ranks after every step, ms/step and
-   the bytes all-reduced per step; the same two ranks at 64x96 on the card
-   against the two on the CPU, the loss terms RANSAC does not enter at
-   phase 5's tolerance (the others recorded); (c) ``eval.depth``
-   with the two ranks, its tables equal to phase 8's one-process tables;
+   checkpoints) through ``DistributedDataParallel``; (b) two ranks sharing
+   the card over gloo (NCCL refuses two ranks on one card): 3 ``fine_tune``
+   steps at 192x640, batch 3 per rank, 6 launches of each kernel per
+   rank-step, parameters and BatchNorm buffers bit-identical across the
+   ranks after every step, and the bytes all-reduced per step; the same two
+   ranks at 64x96 on the card against the two on the CPU, the loss terms
+   RANSAC does not enter at phase 5's tolerance (the others recorded); (c)
+   ``eval.depth`` with the two ranks, its tables equal to phase 8's
+   one-process tables;
 12. (a) the training visualisation: the curriculum from the entry point on
    tiny_kitti at 192x640, batch 3, one step per phase, without
    ``--no_train_vis`` and with a recording stand-in for wandb in
    ``sys.modules`` (never the real one: no network): per step 3 grids of
    576x1920x3, finite, in [0, 1], the train and val scalars under the JAX
    package's names, 6 launches of K1 and none of K2-K4 in each ``log_vis``
-   call, its wall ms beside the step's; ``vis_grids`` of one batch on the
-   card against the CPU from the same weights (``VIS_TOL`` on the first two
-   rows, the colour wheels as phase 8 holds frames); (b) phase 7's last
-   folder with its Adam state written in the JAX package's ``.msgpack``
-   layout: ``eval.depth`` from it equal to phase 8's table, its time beside
-   the ``.pth`` folder's, and one ``fine_tune`` step resumed from each
+   call; ``vis_grids`` of one batch on the card against the CPU from the
+   same weights (``VIS_TOL`` on the first two rows, the colour wheels as
+   phase 8 holds frames); (b) phase 7's last folder with its Adam state
+   written in the JAX package's ``.msgpack`` layout: ``eval.depth`` from it
+   equal to phase 8's table, and one ``fine_tune`` step resumed from each
    folder (and once more from the ``.pth`` one, which says how far the
    card's step repeats bitwise): bit-equal losses, the states within one
-   Adam step's round-off, and the same two steps bit-equal on the CPU; (c) ``bench/grad_compare.py`` at its
-   defaults on the card and the CPU, then ``--diff``: the terms outside
-   RANSAC within phase 5's 1e-4, update norms within ``UPDATE_NORM_TOL``;
-   (d) ``bench/profile_top_ops.py`` on a ``--profile`` trace of 2
-   ``fine_tune`` steps, its counts of the four kernels held to the steps'
-   and the validation batches' launches;
+   Adam step's round-off, and the same two steps bit-equal on the CPU; (c)
+   ``bench/grad_compare.py`` at its defaults on the card and the CPU, then
+   ``--diff``: the terms outside RANSAC within phase 5's 1e-4, update norms
+   within ``UPDATE_NORM_TOL``; (d) ``bench/profile_top_ops.py`` on a
+   ``--profile`` trace of 2 ``fine_tune`` steps, its counts of the four
+   kernels held to the steps' and the validation batches' launches;
 13. (a) the pretrained init: random backbone files in the layouts it reads
    (a torchvision ResNet-18 state dict, ``fc.*`` included, and
    ``{"model": ..., "args": argparse.Namespace}`` for Lite-Mono-8M) under
    ``build/chip_smoke/phase13/ckpt``, and from that working directory the
    curriculum from the entry point at 192x640, batch 3, LiteMono, the
-   default ``weights_init``, one step per phase: before the first step every
-   encoder tensor equals the files' (conv1 widened to the file's conv1 / n
-   and to ``widen_conv1`` from ``RandomState(seed)`` on the CPU), the
-   seconds the load took, launches per step as phase 7's; monodepthv2 from
-   the same folder, its ``depth_enc`` the file's; with an empty ``ckpt/``
-   the JAX package's two messages and one ``fine_tune`` step; (b)
-   ``eval.depth -l ckpt/K_Dynamo-Depth`` through a stub ``gdown`` on
-   ``PATH`` that zips phase 7's last folder: its table equal to phase 8's;
-   with no ``gdown`` on ``PATH``, the FileNotFoundError naming the Google
-   Drive id; (c) ``eval.motion_segmentation`` and ``eval.odometry`` on two
-   gloo ranks sharing the card, launched as in phase 11(b): counts and the
-   FP tally within 1e-3 of the pixels and the odometry record within 1e-4
-   relative of phase 8's one-process records, rank 0 alone writing;
+   default ``weights_init``, one step per phase: the files loaded once, and
+   before the first step every encoder tensor equals the files' (conv1
+   widened to the file's conv1 / n and to ``widen_conv1`` from
+   ``RandomState(seed)`` on the CPU), launches per step as phase 7's;
+   monodepthv2 from the same folder, its ``depth_enc`` the file's; with an
+   empty ``ckpt/`` the JAX package's two messages and one ``fine_tune``
+   step; (b) ``eval.depth -l ckpt/K_Dynamo-Depth`` through a stub ``gdown``
+   on ``PATH`` that zips phase 7's last folder: its table equal to phase
+   8's; with no ``gdown`` on ``PATH``, the FileNotFoundError naming the
+   Google Drive id; (c) ``eval.motion_segmentation`` and ``eval.odometry``
+   on two gloo ranks sharing the card, launched as in phase 11(b): counts
+   and the FP tally within 1e-3 of the pixels and the odometry record
+   within 1e-4 relative of phase 8's one-process records, rank 0 alone
+   writing;
 14. (a) the throughput CLI as a user runs it, ``python -m
    dynamo_depth_torch.bench.throughput`` (bfloat16 legs at batch 7, 8 and
    3) and again with ``--compute_dtype float32 --batch_size 3``: its last
    stdout line is the contract with a finite value > 0, every leg completed
    and launched each kernel 6 times per step, the warp's instances those of
    the operand dtype its batch picks under ``--image_dtype auto`` (bfloat16
-   at b8, float32 at b3 and b7); each leg's examples/s, ms/step and MFU
-   beside phases 6 and 10's steps; (b) ``entry()`` on the card
-   against ``entry(device="cpu")`` on the card's weights, its three outputs
-   within ``ENTRY_RTOL``, no kernel launched, the card's forward timed; (c)
-   ``python -m dynamo_depth_torch.entry 1`` (NCCL) and ``... 2
-   --backend=gloo`` (two ranks sharing the card): both arms completed (a
-   budget skip fails here), finite losses, each arm's wall seconds;
+   at b8, float32 at b3 and b7); (b) ``entry()`` on the card against
+   ``entry(device="cpu")`` on the card's weights, its three outputs within
+   ``ENTRY_RTOL``, no kernel launched; (c) ``python -m
+   dynamo_depth_torch.entry 1`` (NCCL) and ``... 2 --backend=gloo`` (two
+   ranks sharing the card): both arms completed (a budget skip fails here),
+   finite losses;
 15. K1's and K2's bfloat16-image instances at batch 8, 192x640, where
    ``--image_dtype auto`` casts the warp's source images to bfloat16: (b)
-   the LiteMono ``fine_tune`` step with float32 networks, timed as phase 6
-   with 6 launches per step of each bfloat16 instance and none of the
-   float32 warp instances, profiled, and one more step whose six warp
-   inputs are captured and saved to
-   ``build/chip_smoke/step_warp_inputs_b8.pt`` (for ``bench/kernel_ab.py
-   --step-inputs ... --cold``); (a)
-   the instances against the plain version on the bfloat16 image (a
-   uniform grid, the ego-motion grid, a grid at the clamp's ties and the
-   six step grids), and bit-equal to the float32 instances on the rounded
-   image; (b) the step on the card against the same step on the
-   CPU, phase 5's tolerances; (c) device ms, warm and cold, beside the float32
-   instances', the plain version's, the library's (``F.grid_sample`` of the
-   image widened to float32, the cast included) and the bytes bound.
+   the LiteMono ``fine_tune`` step with float32 networks, checked as phase
+   6 with 6 launches per step of each bfloat16 instance and none of the
+   float32 warp instances, and one more step whose six warp inputs are
+   captured; (a) the instances against the plain version on the bfloat16
+   image (a uniform grid, the ego-motion grid, a grid at the clamp's ties
+   and the six step grids), and bit-equal to the float32 instances on the
+   rounded image; (b) the step on the card against the same step on the
+   CPU, phase 5's tolerances.
 
-Prints one ``{"kernels": [...]}`` line, then, last, the
-``{"ok": true, "device": {...}}`` line.
+Prints the ``{"ok": true, "device": {...}}`` line last.
 """
 
 import contextlib
@@ -175,27 +158,7 @@ from pathlib import Path
 import numpy as np
 
 B, C, H, W = 3, 3, 192, 640
-STEPS_WARMUP, STEPS_TIMED = 2, 5
-
-# Published H100 rates (NVIDIA data sheets): HBM bytes/s and float32 (non
-# tensor-core) FLOP/s at the full power limit.
-_RATES = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "": (3.35e12, 67e12)}
-
-
-def card_rates(name):
-    for key, rates in _RATES.items():
-        if key and key in name:
-            return rates
-    return _RATES[""]
-
-
-def fmt_ms(v):
-    """A device time, or n/a where the profiler saw no device activity."""
-    return "n/a" if v is None else f"{v:.4f}"
-
-
-def mean_ms(values):
-    return None if any(v is None for v in values) else float(np.mean(values))
+STEPS = 7  # fine_tune steps of each step check (phases 6, 9, 10 and 15b)
 
 
 def max_err(a, b):
@@ -234,24 +197,13 @@ def launches_per_step(cfg, phase="fine_tune"):
 KERNEL_NAMES = ("warp_fwd", "warp_bwd", "warp_fwd_bf16", "warp_bwd_bf16", "photometric_fwd", "photometric_bwd")
 
 
-def instance_of(key):
-    """The launch-count name of a profiler entry of one of the port's
-    kernels (the warp's bfloat16 instances by their template argument), or
-    None for any other entry."""
-    for k in ("warp_fwd", "warp_bwd", "photometric_fwd", "photometric_bwd"):
-        if f"{k}_kernel" in key:
-            return k + "_bf16" if k.startswith("warp") and "bfloat16" in key else k
-    return None
-
-
 def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", reload=True, weights_init="scratch"):
     """Phases 7, 9, 11a and 13a: the curriculum from the entry point, ``steps``
     steps per phase (``weights_init`` None: the flag left at its default,
     which reads ``./ckpt``), then (``reload``) its last folder loaded into a fresh
-    trainer and one more step from it. Returns {"launches": {kernel: n},
-    "per_step": {kernel: {phase: n}}, "summary": {...}, "wrappers": the
-    type of the training wrapper at each step}; raises SystemExit on any
-    failure."""
+    trainer and one more step from it. Returns {"per_step": {kernel: {phase:
+    n}}, "folder": the last checkpoint folder, "wrappers": the type of the
+    training wrapper at each step}; raises SystemExit on any failure."""
     import torch
 
     from dynamo_depth_torch import train as train_entry
@@ -281,22 +233,17 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
     print(f"curriculum: python -m dynamo_depth_torch.train {' '.join(argv)}")
     print(f"  native data plane: {'built' if native.available() else 'not built: ' + str(native.build_error).splitlines()[-1]}")
 
-    # Per phase: each step's launches, time and losses (the wrapper adds
-    # nothing to the step but the synchronisations around it), and the
-    # weights before and after.
+    # Per phase: each step's launches and losses, and the weights before and
+    # after.
     records = {p: [] for p in trainer_mod.PHASES}
     weights = {}
     run_step, run_phase = trainer_mod.Trainer.train_step, trainer_mod.Trainer.run_phase
 
     def recorded_step(self, batch, generator, step):
-        torch.cuda.synchronize()
         before = launch_counts()
-        t0 = time.perf_counter()
         losses = run_step(self, batch, generator, step)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         after = launch_counts()
-        records[self.phase].append({"ms": ms, "launches": {k: after[k] - before[k] for k in after},
+        records[self.phase].append({"launches": {k: after[k] - before[k] for k in after},
                                   "losses": {k: float(v) for k, v in losses.items()},
                                   "wrapper": type(self.ddp).__name__})
         return losses
@@ -330,7 +277,6 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
     if zero:
         raise SystemExit(f"kernels never launched in the curriculum: {zero}")
     per_step = {k: {} for k in launches}
-    summary = {"wall_s": wall_s, "peak_bytes": peak, "decoder": decodes, "phases": {}}
     for phase, recs in records.items():
         if len(recs) != steps:
             raise SystemExit(f"{phase}: {len(recs)} steps, expected {steps}")
@@ -352,17 +298,9 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
                 raise SystemExit(f"{phase}: trainable module {module} did not move")
             if module not in trainable and moved:
                 raise SystemExit(f"{phase}: frozen module {module} changed: {moved[:3]}")
-        timing = [h for h in trainer.history if h["mode"] == "time" and h["phase"] == phase]
-        data_s = sum(h["data_s"] for h in timing)
-        compute_s = sum(h["compute_s"] for h in timing)
-        ms = float(np.median([r["ms"] for r in recs]))
-        summary["phases"][phase] = {"ms_per_step": ms, "step_ms": [r["ms"] for r in recs], "data_wait_s": data_s,
-                                    "compute_s": compute_s, "loss": recs[-1]["losses"]["loss"]}
-        each = ", ".join(f"{r['ms']:.1f}" for r in recs)
-        print(f"  {phase}: {ms:.2f} ms/step (median of {steps}: {each}), "
-              f"data wait {data_s * 1e3:.1f} ms and compute {compute_s * 1e3:.1f} ms over the logged steps "
-              f"(log_time), launches per step {recs[0]['launches']}, trainable {'/'.join(trainable)} moved, "
-              f"the others bit-identical, loss {recs[-1]['losses']['loss']:.5f} on {smi}")
+        print(f"  {phase}: {steps} steps, launches per step {recs[0]['launches']}, trainable "
+              f"{'/'.join(trainable)} moved, the others bit-identical, loss {recs[-1]['losses']['loss']:.5f} "
+              f"on {smi}")
     print(f"  curriculum: {wall_s:.1f} s wall for 4 phases x {steps} steps with a validation batch after each, "
           f"peak memory {peak / 2**30:.2f} GiB on {smi}")
 
@@ -378,8 +316,7 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
     wrappers = sorted({r["wrapper"] for recs in records.values() for r in recs})
     last = models / "fine_tune_00"
     if not reload:
-        return {"launches": launches, "per_step": per_step, "summary": summary, "folder": str(last),
-                "wrappers": wrappers}
+        return {"per_step": per_step, "folder": str(last), "wrappers": wrappers}
 
     cfg = DynamoConfig.from_dict(json.loads((last / "opt.json").read_text()))
     cfg.load_ckpt = str(last)
@@ -401,9 +338,7 @@ def run_curriculum(smi, depth_model="litemono", steps=3, name="curriculum", relo
                          f"train losses {losses}")
     print(f"  one more fine_tune step from fine_tune_00 with --resume_optim: Adam's count {steps} -> {steps + 1}, "
           f"loss {losses[0]:.5f}")
-    summary["resumed_loss"] = losses[0]
-    return {"launches": launches, "per_step": per_step, "summary": summary, "folder": last, "work": work,
-            "wrappers": wrappers}
+    return {"per_step": per_step, "folder": last, "work": work, "wrappers": wrappers}
 
 
 _FLOAT = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
@@ -435,16 +370,14 @@ def compare_depth_tables(key, card_path, cpu_path):
 def run_eval(smi, folder, work):
     """Phase 8. Every eval CLI and the quick demo from ``folder`` on the card,
     then on the CPU, with the card's records held against the CPU's. Returns
-    a summary; raises SystemExit on any failure."""
+    the card's records that phases 11-13 compare with; raises SystemExit on
+    any failure."""
     import torch
 
     from dynamo_depth_torch import quick_demo
     from dynamo_depth_torch.bench.two_process_drive import ODOM_FRAMES, ODOM_SEG, build_odometry_segment
-    from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.eval import depth, motion_segmentation, odometry, visualize
     from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
-    from dynamo_depth_torch.training.synthetic import synthetic_batch
-    from dynamo_depth_torch.training.trainer import Trainer
 
     root = Path(__file__).resolve().parent
     assets = root / "assets"
@@ -531,39 +464,10 @@ def run_eval(smi, folder, work):
     for path in mc["missing"]:
         print(f"  plot file not written (no matplotlib): {path}")
 
-    # predict alone: device ms per batch at the main path's size
-    cfg = DynamoConfig.from_dict(json.loads((folder / "opt.json").read_text()))
-    cfg.load_ckpt = str(folder)
-    trainer = Trainer(cfg)
-    batch = synthetic_batch(cfg, B, H, W)
-    from torch.profiler import ProfilerActivity, profile
-
-    from dynamo_depth_torch.bench.timing import self_device_us
-
-    predict_ms = {}
-    for flags in ((False, False), (True, False), (True, True)):
-        dev_ms, wall_ms = [], []
-        for i in range(2 + 5):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                trainer.predict(batch, *flags)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            if i >= 2:
-                dev_ms.append(sum(self_device_us(e) for e in prof.key_averages()) / 1e3)
-                wall_ms.append(wall)
-        key = f"CmpFlow={flags[0]},MotMask={flags[1]}"
-        predict_ms[key] = {"device_ms": float(np.median(dev_ms)), "wall_ms": float(np.median(wall_ms))}
-        print(f"  predict {key} at {H}x{W} batch {B}: {predict_ms[key]['device_ms']:.3f} ms device, "
-              f"{predict_ms[key]['wall_ms']:.3f} ms wall with the copy in (median of 5 after 2 warm-ups) on {smi}")
-    return {"launches": launches, "peak_bytes": peak, "card_s": card["seconds"], "cpu_s": cpu["seconds"],
-            "tables": {"kitti": card["depth_kitti"]["path"], "waymo": card["depth_waymo"]["path"]},
+    return {"tables": {"kitti": card["depth_kitti"]["path"], "waymo": card["depth_waymo"]["path"]},
             "mot_seg": {"npz": mc["npz"], "fp_tally": {str(k): int(v) for k, v in mc["fp_tally"].items()},
                         **{k: mc[k].tolist() for k in ("tp", "fp", "fn")}},
-            "odometry_npy": card["odometry"]["npy"],
-            "predict": predict_ms, "plots_written": mc["pdfs"], "plots_missing": mc["missing"],
-            "odometry_ate": card["odometry"]["ates"]}
+            "odometry_npy": card["odometry"]["npy"]}
 
 
 def card_vs_cpu_step(small):
@@ -613,36 +517,28 @@ def card_vs_cpu_step(small):
     return {"rel": rel, "launches": launches}
 
 
-def timed_steps(trainer, batch, gen, smi, label):
-    """STEPS_WARMUP + STEPS_TIMED training steps with the launch counts set
-    to 0 just before and read just after: finite losses, moved weights and
-    the launches per step that ``trainer.cfg.scales`` asks for. Returns
-    {"ms": median of the timed steps, "step_ms", "launches", "steps",
-    "peak_bytes", "losses"}."""
+def checked_steps(trainer, batch, gen, smi, label):
+    """STEPS training steps with the launch counts set to 0 just before and
+    read just after: finite losses, moved weights and the launches per step
+    that ``trainer.cfg.scales`` asks for."""
     import torch
 
     from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
 
     watch = {n: p.detach().clone() for n, p in list(trainer.model.named_parameters())[::40]}
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms = []
-    for step in range(STEPS_WARMUP + STEPS_TIMED):
-        t0 = time.perf_counter()
+    for step in range(STEPS):
         losses = trainer.train_step(batch, gen, step)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         bad = [k for k, v in losses.items() if not math.isfinite(float(v))]
         if bad:
             raise SystemExit(f"{label} step {step}: non-finite losses {bad}")
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    steps = STEPS_WARMUP + STEPS_TIMED
     per_step = launches_per_step(trainer.cfg)
     for k, n in counts.items():
-        if n != per_step[k] * steps:
-            raise SystemExit(f"{label}: {k} launched {n} times in {steps} steps, expected {per_step[k] * steps}")
+        if n != per_step[k] * STEPS:
+            raise SystemExit(f"{label}: {k} launched {n} times in {STEPS} steps, expected {per_step[k] * STEPS}")
     # Every watched weight whose gradient can move it has moved. The dilated
     # blocks' unused LayerNorm receives no gradient; and Adam moves a weight
     # by about lr * g / (|g| + 1e-8), which for |g| far below its eps 1e-8
@@ -653,59 +549,30 @@ def timed_steps(trainer, batch, gen, smi, label):
     frozen = [n for n, p in trained if torch.equal(p.detach(), watch[n])]
     if not trained or frozen:
         raise SystemExit(f"{label}: weights that did not move: {frozen} of {len(trained)} watched")
-    ms = float(np.median(step_ms[STEPS_WARMUP:]))
     cfg = trainer.cfg
-    print(f"fine_tune {label} {cfg.height}x{cfg.width} batch {cfg.batch_size} on {smi}: "
-          f"{ms:.2f} ms/step (median of {STEPS_TIMED}; warm-up {step_ms[0]:.1f}, {step_ms[1]:.1f} ms), "
-          f"{cfg.batch_size / ms * 1e3:.2f} examples/s, peak memory {peak / 2**30:.2f} GiB; "
+    print(f"fine_tune {label} {cfg.height}x{cfg.width} batch {cfg.batch_size} on {smi}: {STEPS} steps, losses "
+          f"finite, {len(trained)} watched weights moved, peak memory {peak / 2**30:.2f} GiB; "
           f"loss {float(losses['loss']):.6f}; launches {counts}")
-    return {"ms": ms, "step_ms": step_ms, "launches": counts, "steps": steps, "peak_bytes": peak,
-            "losses": {k: float(v) for k, v in losses.items()}}
 
 
-def profiled_step(trainer, batch, gen, step, step_ms, top=8):
-    """One more training step under the profiler: device busy ms, device ops,
-    the ``top`` largest device entries, and each kernel's device ms per launch
-    inside the step. Returns {"busy_ms", "wall_ms", "ops", "in_step_ms",
-    "launches"}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def capture_warp_inputs(trainer, batch, gen, step):
+    """Phases 6 and 15b: one more training step, with a copy of each warp
+    forward's (image, grid) kept. Returns the list of copies."""
+    from dynamo_depth_torch.ops.kernels import warp
 
-    from dynamo_depth_torch.bench.timing import self_device_us
+    captured = []
+    launch_fwd = warp.warp_fwd
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def capture(image, gr):
+        captured.append((image.detach().clone(), gr.detach().clone()))
+        return launch_fwd(image, gr)
+
+    warp.warp_fwd = capture
+    try:
         trainer.train_step(batch, gen, step)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only (kernels, copies, sets): operator-level events
-    # carry the device time of the kernels they launched, and annotations
-    # (the optimizer's step) span them.
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-    ]
-    busy_ms = sum(self_device_us(e) for e in events) / 1e3
-    events.sort(key=self_device_us, reverse=True)
-    ops = sum(e.count for e in events)
-    print(f"profiled step: wall {wall_ms:.1f} ms (profiler on), device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.0f}% of wall; {100 * busy_ms / step_ms:.0f}% of the unprofiled step), "
-          f"{ops} device ops; top by device time:")
-    for e in events[:top]:
-        print(f"  {self_device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:100]}")
-    ours = sum(self_device_us(e) for e in events if any(n in e.key for n in ("warp_", "photometric_")))
-    print(f"  the four port kernels: {ours / 1e3:.3f} ms ({100 * ours / 1e3 / max(busy_ms, 1e-9):.2f}% of device time)")
-    per_step = launches_per_step(trainer.cfg)
-    in_step, launches = {}, {}
-    for k, n in per_step.items():
-        mine = [e for e in events if instance_of(e.key) == k]
-        launches[k] = sum(e.count for e in mine)
-        if launches[k] != n:
-            raise SystemExit(f"{k}: {launches[k]} launches in the profiled step, expected {n}")
-        if n:
-            in_step[k] = sum(self_device_us(e) for e in mine) / 1e3 / n
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "ops": ops, "in_step_ms": in_step, "launches": launches}
+    finally:
+        warp.warp_fwd = launch_fwd
+    return captured
 
 
 def run_monodepthv2(smi, work):
@@ -728,9 +595,7 @@ def run_monodepthv2(smi, work):
     trainer = Trainer(cfg)
     batch = trainer.to_device(synthetic_batch(cfg, B, cfg.height, cfg.width))
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
-    step = timed_steps(trainer, batch, gen, smi, "monodepthv2 float32")
-    profiled = profiled_step(trainer, batch, gen, step["steps"], step["ms"])
-    print("  in-step ms per launch: " + ", ".join(f"{k} {v:.4f}" for k, v in profiled["in_step_ms"].items()))
+    checked_steps(trainer, batch, gen, smi, "monodepthv2 float32")
     del trainer, batch
 
     print("monodepthv2 curriculum from the entry point:")
@@ -752,7 +617,6 @@ def run_monodepthv2(smi, work):
     cpu = depth.main(args + ["--eval_dir", str(work / "eval_monodepthv2" / "cpu")], device="cpu")
     print(f"  eval.depth of the monodepthv2 fine_tune_00: {depth_s:.1f} s on the card")
     compare_depth_tables("monodepthv2 depth_kitti", card["path"], cpu["path"])
-    return {"step": step, "profiled": profiled, "curriculum": curriculum, "depth_eval_s": depth_s}
 
 
 # Relative difference allowed between a loss term of the bfloat16 step and
@@ -766,12 +630,11 @@ BF16_LOSS_TOL = 1e-2
 RANSAC_TERMS = {"loss", "loss_term/d_ground"} | {f"loss_term/{s}" for s in range(4)}
 
 
-def run_bf16(smi, f32_step, f32_profiled):
+def run_bf16(smi):
     """Phase 10: the LiteMono fine_tune step with compute_dtype="bfloat16"
     from phase 6's seed-0 weights: its loss terms against a float32 step
-    from the same weights, batch and draws; ms/step, device busy ms, peak
-    memory and in-step kernel times beside phase 6's; one bfloat16
-    monodepthv2 step."""
+    from the same weights, batch and draws; the step checked as phase 6's;
+    one bfloat16 monodepthv2 step."""
     import torch
 
     from dynamo_depth_torch.config import DynamoConfig
@@ -801,13 +664,7 @@ def run_bf16(smi, f32_step, f32_profiled):
           f"RANSAC: " + ", ".join(f"{k.split('/')[-1]} {rel[k]:.2e}" for k in rel if k in RANSAC_TERMS) + "); "
           + ", ".join(f"{k.split('/')[-1]} {v:.2e}" for k, v in rel.items() if k not in RANSAC_TERMS))
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    step = timed_steps(t16, batch, gen, smi, "LiteMono bfloat16")
-    profiled = profiled_step(t16, batch, gen, step["steps"], step["ms"])
-    print(f"  bfloat16 against float32 (phase 6): {step['ms']:.2f} vs {f32_step['ms']:.2f} ms/step, device busy "
-          f"{profiled['busy_ms']:.1f} vs {f32_profiled['busy_ms']:.1f} ms, peak {step['peak_bytes'] / 2**30:.2f} vs "
-          f"{f32_step['peak_bytes'] / 2**30:.2f} GiB; in-step ms per launch: "
-          + ", ".join(f"{k} {v:.4f} vs {f32_profiled['in_step_ms'][k]:.4f}" for k, v in profiled["in_step_ms"].items()))
+    checked_steps(t16, batch, torch.Generator(device="cuda").manual_seed(0), smi, "LiteMono bfloat16")
     del t16, batch
 
     md2 = Trainer(DynamoConfig(**dict(kw, depth_model="monodepthv2", compute_dtype="bfloat16")))
@@ -818,7 +675,6 @@ def run_bf16(smi, f32_step, f32_profiled):
     print(f"  one bfloat16 monodepthv2 step: loss {float(out['loss']):.6f}, every term finite")
     if rel[worst] > BF16_LOSS_TOL:
         raise SystemExit(f"bfloat16 step disagrees with the float32 step: {losses}")
-    return {"step": step, "profiled": profiled, "rel": rel, "md2_loss": float(out["loss"])}
 
 
 DDP_TIMEOUT_S = 600  # a phase-11 launch past it is killed: a hung collective fails the script
@@ -873,8 +729,8 @@ def ddp_worker(worker, out):
 def gloo_main_path(rank, steps=3):
     """11b: ``steps`` fine_tune steps at 192x640, batch 3 per rank, from
     seed-0 weights, both ranks on cuda:0 over gloo: each rank's launches per
-    step, ms per step, and the ranks' parameters and BatchNorm buffers
-    bit-identical after every step (``check_replicated`` raises if not)."""
+    step, and the ranks' parameters and BatchNorm buffers bit-identical
+    after every step (``check_replicated`` raises if not)."""
     import torch
 
     from dynamo_depth_torch.config import DynamoConfig
@@ -889,15 +745,11 @@ def gloo_main_path(rank, steps=3):
     rows = synthetic_batch(cfg, B * world, H, W)
     batch = trainer.to_device({k: v[rank * B:(rank + 1) * B] for k, v in rows.items()})
     expected = launches_per_step(cfg)
-    step_ms, launches = [], []
-    torch.cuda.synchronize()
+    launches = []
     reset_launch_counts()
     for step in range(steps):
         before = launch_counts()
-        t0 = time.perf_counter()
         losses = trainer.train_step(batch, trainer.generator, step)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         after = launch_counts()
         launches.append({k: after[k] - before[k] for k in after})
         if launches[-1] != expected:
@@ -906,12 +758,11 @@ def gloo_main_path(rank, steps=3):
         if bad:
             raise SystemExit(f"rank {rank} step {step}: non-finite losses {bad}")
         pdist.check_replicated(trainer.model)
-    total = launch_counts()
     trainable = sum(p.numel() for p in trainer.model.parameters() if p.requires_grad)
     bn = sum(b.numel() for n, b in trainer.model.named_buffers() if n.endswith(("running_mean", "running_var")))
-    return {"step_ms": step_ms, "launches_per_step": launches, "launches": total, "wrapper": type(trainer.ddp).__name__,
-            "trainable_params": trainable, "bn_values": bn, "allreduce_bytes_per_step": 4 * (trainable + bn),
-            "loss": float(losses["loss"]), "peak_bytes": torch.cuda.max_memory_allocated()}
+    return {"launches_per_step": launches, "wrapper": type(trainer.ddp).__name__, "trainable_params": trainable,
+            "bn_values": bn, "allreduce_bytes_per_step": 4 * (trainable + bn), "loss": float(losses["loss"]),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
 def gloo_card_vs_cpu(rank):
@@ -973,7 +824,7 @@ def gloo_eval(rank, out):
     return paths
 
 
-def run_ddp(smi, phase7, phase8_tables):
+def run_ddp(phase8_tables):
     """Phase 11: the port's data parallelism on the one card. 11a: the
     curriculum from the entry point under torchrun at world size 1 over NCCL;
     11b: two gloo ranks sharing the card, bit-equal after every step and held
@@ -991,12 +842,8 @@ def run_ddp(smi, phase7, phase8_tables):
     a = json.loads((out / "nccl1.json").read_text())
     if a["backend"] != "nccl" or a["world"] != 1 or a["wrappers"] != ["DistributedDataParallel"]:
         raise SystemExit(f"11a did not train through DDP over NCCL: {a['backend']}, {a['world']}, {a['wrappers']}")
-    for phase, rec in a["summary"]["phases"].items():
-        one = phase7["summary"]["phases"][phase]
-        print(f"  {phase}: steps of {', '.join(f'{v:.1f}' for v in rec['step_ms'])} ms at world size 1 through DDP "
-              f"(a new process: its first step is cold); phase 7 in one process: "
-              f"{', '.join(f'{v:.1f}' for v in one['step_ms'])} ms on {smi}")
-    print(f"  11a: {wall_a:.1f} s of wall with the launch")
+    print(f"  11a: trained through DistributedDataParallel over NCCL at world size 1; {wall_a:.1f} s of wall with "
+          f"the launch")
 
     print("11b and 11c: torchrun --nproc_per_node 2, both ranks on cuda:0 over gloo:")
     wall_b = launch(2, "gloo2", out)
@@ -1005,12 +852,11 @@ def run_ddp(smi, phase7, phase8_tables):
     for r, m in enumerate(mp):
         if m["wrapper"] != "DistributedDataParallel":
             raise SystemExit(f"11b rank {r} did not train through DDP: {m['wrapper']}")
-        print(f"  rank {r}: fine_tune {H}x{W} batch {B} per rank, ms/step {', '.join(f'{v:.1f}' for v in m['step_ms'])}"
-              f" (two processes sharing one card over a host-staged gloo: no measure of scaling), launches per "
-              f"step {m['launches_per_step'][0]}, loss {m['loss']:.6f}, peak {m['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"  rank {r}: fine_tune {H}x{W} batch {B} per rank, launches per step {m['launches_per_step'][0]}, "
+              f"loss {m['loss']:.6f}, peak {m['peak_bytes'] / 2**30:.2f} GiB")
     if mp[0]["loss"] != mp[1]["loss"]:
         raise SystemExit(f"11b: the ranks' averaged losses differ: {mp[0]['loss']} vs {mp[1]['loss']}")
-    print(f"  parameters and BatchNorm buffers bit-identical on both ranks after each of {len(mp[0]['step_ms'])} "
+    print(f"  parameters and BatchNorm buffers bit-identical on both ranks after each of {len(mp[0]['launches_per_step'])} "
           f"steps; all-reduced per step: {mp[0]['trainable_params']} trainable parameters and {mp[0]['bn_values']} "
           f"BatchNorm values, {mp[0]['allreduce_bytes_per_step'] / 2**20:.2f} MiB")
     cvc = ranks[0]["card_vs_cpu"]
@@ -1025,7 +871,6 @@ def run_ddp(smi, phase7, phase8_tables):
     if not Path(ranks[0]["eval"]["kitti"]).exists() or ranks[1]["eval"]["kitti"] != ranks[0]["eval"]["kitti"]:
         raise SystemExit("11c: rank 0 wrote no table")
     print(f"  11b and 11c: {wall_b:.1f} s of wall with the launch")
-    return {"nccl1": a, "gloo2": ranks, "wall_s": {"11a": wall_a, "11bc": wall_b}}
 
 
 class RecordingWandb:
@@ -1066,17 +911,15 @@ def grids_agree(what, card, cpu, h):
 VIS_TOL = 1e-3
 
 
-def run_vis(smi, work):
+def run_vis(work):
     """12a: the entry point's curriculum with the training visualisation on,
-    through a recording wandb; each log_vis call's launches and wall ms; then
-    log_vis of one batch on the card and on the CPU from the same weights."""
-    import torch
-
+    through a recording wandb; each log_vis call's launches; then log_vis of
+    one batch on the card and on the CPU from the same weights."""
     from dynamo_depth_torch import train as train_entry
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.data.loader import collate
     from dynamo_depth_torch.data.splits import read_split
-    from dynamo_depth_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dynamo_depth_torch.ops.kernels import launch_counts
     from dynamo_depth_torch.training import trainer as trainer_mod
 
     root = Path(__file__).resolve().parent
@@ -1085,32 +928,24 @@ def run_vis(smi, work):
             "--epoch_schedules", "1", "1", "1", "1", "--epoch-size", "1", "--log_frequency", "1",
             "--log_dir", str(work / "logs"), "--print_opt", ""]
     print(f"12a: python -m dynamo_depth_torch.train {' '.join(argv)} (wandb: a recording stand-in)")
-    calls, steps = [], []
-    log_vis, train_step = trainer_mod.Trainer.log_vis, trainer_mod.Trainer.train_step
+    calls = []
+    log_vis = trainer_mod.Trainer.log_vis
 
-    def timed(fn, records):
-        def wrapper(self, *args):
-            torch.cuda.synchronize()
-            before = launch_counts()
-            t0 = time.perf_counter()
-            out = fn(self, *args)
-            torch.cuda.synchronize()
-            after = launch_counts()
-            records.append({"phase": self.phase, "ms": (time.perf_counter() - t0) * 1e3,
-                            "launches": {k: after[k] - before[k] for k in after}})
-            return out
-        return wrapper
+    def counted_log_vis(self, *args):
+        before = launch_counts()
+        out = log_vis(self, *args)
+        after = launch_counts()
+        calls.append({"phase": self.phase, "launches": {k: after[k] - before[k] for k in after}})
+        return out
 
     stub = RecordingWandb()
     saved = sys.modules.get("wandb")
     sys.modules["wandb"] = stub
-    trainer_mod.Trainer.log_vis, trainer_mod.Trainer.train_step = timed(log_vis, calls), timed(train_step, steps)
+    trainer_mod.Trainer.log_vis = counted_log_vis
     try:
-        reset_launch_counts()
         trainer = train_entry.main(argv)
-        launches = launch_counts()
     finally:
-        trainer_mod.Trainer.log_vis, trainer_mod.Trainer.train_step = log_vis, train_step
+        trainer_mod.Trainer.log_vis = log_vis
         if saved is None:
             del sys.modules["wandb"]
         else:
@@ -1137,27 +972,20 @@ def run_vis(smi, work):
     print(f"  4 phases x 1 step: wandb.init once (project Dynamo); per step {B} grids vis/train_j of "
           f"{3 * H}x{3 * W}x3, finite, in [0, 1]; train_ and val_ scalars as the JAX package names them "
           f"({', '.join(sorted(scalars[0][0])[:3])}, ...); launches per log_vis call {calls[0]['launches']}")
-    for c, st in zip(calls, steps):
-        print(f"  {c['phase']}: log_vis {c['ms']:.1f} ms wall (rendering and the host copies), the step "
-              f"{st['ms']:.1f} ms, on {smi}")
 
     # log_vis of one batch on the card and on the CPU, from the same weights.
     cpu = trainer_mod.Trainer(DynamoConfig.from_dict(cfg.to_dict()), device="cpu", phase=trainer.phase)
     cpu.model.load_state_dict({k: v.cpu() for k, v in trainer.model.state_dict().items()})
     ds = trainer.get_dataset(read_split(cfg.split, "train")[:B])
     batch = collate([ds.get_item(i) for i in range(B)])
-    t0 = time.perf_counter()
     card_grids = trainer.vis_grids(trainer.to_device(batch))
-    card_ms = (time.perf_counter() - t0) * 1e3
     cpu_grids = cpu.vis_grids(cpu.to_device(batch))
     grids_agree(f"log_vis grids of one tiny_kitti batch ({trainer.phase}), card vs CPU", card_grids, cpu_grids, H)
     del cpu
-    return {"calls": calls, "steps": steps, "launches": launches, "vis_ms": [c["ms"] for c in calls],
-            "step_ms": [s["ms"] for s in steps], "grid_ms_one_batch": card_ms,
-            "launches_per_log_vis": calls[0]["launches"], "folder": work / "logs" / "vis" / "models" / "fine_tune_00"}
+    return work / "logs" / "vis" / "models" / "fine_tune_00"
 
 
-def run_jax_folder(smi, work, folder, phase8_table):
+def run_jax_folder(work, folder, phase8_table):
     """12b: phase 7's last folder written in the JAX package's layout
     (``.msgpack`` modules, ``meta.json``, optax's ``adam.msgpack``), then
     ``eval.depth`` and a resumed fine_tune step from it on the card, against
@@ -1176,35 +1004,30 @@ def run_jax_folder(smi, work, folder, phase8_table):
     source = Trainer(cfg)
     source.load_optimizer(str(folder))
     jax_folder = work / "logs" / "jax_layout" / "models" / "fine_tune_00"
-    t0 = time.perf_counter()
     ckpt.save_jax_folder(source.model, str(jax_folder), height=H, width=W, optimizer=source.optimizer)
-    write_s = time.perf_counter() - t0
     files = sorted(p.name for p in jax_folder.iterdir())
     size = sum(p.stat().st_size for p in jax_folder.iterdir())
-    print(f"12b: {folder.name} with its Adam state (step {source.opt_steps}) written in the JAX package's layout in "
-          f"{write_s:.1f} s: {', '.join(files)} ({size / 2**20:.1f} MiB)")
+    print(f"12b: {folder.name} with its Adam state (step {source.opt_steps}) written in the JAX package's layout: "
+          f"{', '.join(files)} ({size / 2**20:.1f} MiB)")
     if any(f.endswith(".pth") for f in files) or "adam.msgpack" not in files or "meta.json" not in files:
         raise SystemExit(f"the JAX folder holds {files}")
     del source
 
     args = ["-d", "kitti", "--data_path", str(root / "assets" / "tiny_kitti") + "/", "--split", "tiny_kitti",
             "--height", str(H), "--width", str(W), "-b", str(B), "--num_workers", "2"]
-    tables, eval_s = {}, {}
+    tables = {}
     for label, path in (("msgpack", jax_folder), ("pth", folder)):
         log = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             out = depth.main(args + ["-l", str(path), "--eval_dir", str(work / "eval_jax_folder" / label)],
                              device="cuda")
-        eval_s[label] = time.perf_counter() - t0
         if "FAILED" in log.getvalue() or "PARTIAL" in log.getvalue():
             raise SystemExit(f"eval.depth did not load every module of {path}:\n{log.getvalue()}")
         tables[label] = [line for line in out["lines"] if "Model Path" not in line]
     reference = [line for line in Path(phase8_table).read_text().splitlines(keepends=True) if "Model Path" not in line]
     if tables["msgpack"] != tables["pth"] or "".join(tables["pth"]).split() != "".join(reference).split():
         raise SystemExit(f"eval.depth tables differ:\n{''.join(tables['msgpack'])}\n{''.join(tables['pth'])}")
-    print(f"  eval.depth -l <JAX folder> on the card: its table equals the .pth folder's and phase 8's; "
-          f"{eval_s['msgpack']:.2f} s from the .msgpack folder, {eval_s['pth']:.2f} s from the .pth one, on {smi}")
+    print("  eval.depth -l <JAX folder> on the card: its table equals the .pth folder's and phase 8's")
 
     # One fine_tune step resumed from each folder, and once more from the
     # .pth folder: the step's backward is not bitwise repeatable on the card
@@ -1291,8 +1114,6 @@ def run_jax_folder(smi, work, folder, phase8_table):
         raise SystemExit(f"on the CPU the steps resumed from the two folders differ: {cpu_differ[:5]}")
     print(f"  the same two resumed steps on the CPU (96x320, where the step repeats bitwise): weights and Adam state "
           f"bit-equal ({len(x['state'])} state entries, {len(x['adam'])} Adam moments), losses equal")
-    return {"files": files, "bytes": size, "write_s": write_s, "eval_s": eval_s, "bit_equal": not moved,
-            "repeatable": not repeat, "state_entries_differing": len(moved), "repeat_entries_differing": len(repeat)}
 
 
 # Phase 12c: update norms, card against CPU. Adam's first step moves each
@@ -1302,7 +1123,7 @@ def run_jax_folder(smi, work, folder, phase8_table):
 UPDATE_NORM_TOL = 1e-3
 
 
-def run_grad_compare(smi, work):
+def run_grad_compare(work):
     """12c: ``bench/grad_compare.py`` at its defaults on the card and on the
     CPU (drop-path off and the RANSAC draws shared, as phase 5 runs its
     step), then ``--diff``."""
@@ -1348,7 +1169,6 @@ def run_grad_compare(smi, work):
           UPDATE_NORM_TOL)
     if card["platform"] != "cuda" or card.keys() != {"platform", "phase", "losses", "update_norms"}:
         raise SystemExit(f"grad_compare wrote {sorted(card)} on {card['platform']}")
-    return {"loss_rel": rel, "norm_rel": norm_rel, "wall_s": wall}
 
 
 def run_profile_tool(smi, work, folder):
@@ -1387,8 +1207,6 @@ def run_profile_tool(smi, work, folder):
         raise SystemExit(f"profile_top_ops counted {got} launches, expected {expected}")
     print(f"  the four port kernels in the tool's table: {got} launches (6 per step each, and 6 of K1 and K3 per "
           f"validation batch); {summary['total_ms']:.1f} ms of device time in the trace, on {smi}")
-    return {"launches": got, "total_ms": summary["total_ms"],
-            "ms": {k: summary["categories"][k][0] for k in expected}}
 
 
 def run_phase12(smi, phase7, phase8_tables):
@@ -1399,13 +1217,11 @@ def run_phase12(smi, phase7, phase8_tables):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
-    vis = run_vis(smi, work)
-    jax_folder = run_jax_folder(smi, work, Path(phase7["folder"]), phase8_tables["kitti"])
-    grad = run_grad_compare(smi, work)
-    prof = run_profile_tool(smi, work, vis["folder"])
-    wall = time.perf_counter() - t0
-    print(f"phase 12: {wall:.1f} s")
-    return {"vis": vis, "jax_folder": jax_folder, "grad_compare": grad, "profile_tool": prof, "wall_s": wall}
+    vis_folder = run_vis(work)
+    run_jax_folder(work, Path(phase7["folder"]), phase8_tables["kitti"])
+    run_grad_compare(work)
+    run_profile_tool(smi, work, vis_folder)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
 
 def write_backbone_files(ckpt_dir, seed=13):
@@ -1494,16 +1310,12 @@ def run_pretrained(smi, work):
     from dynamo_depth_torch.training.synthetic import synthetic_batch
 
     resnet, lite = write_backbone_files(work / "ckpt")
-    load_s, held = [], []
+    loads, held = [], []
     load, train = trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train
 
-    def timed_load(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = load(*args, **kwargs)
-        torch.cuda.synchronize()
-        load_s.append(time.perf_counter() - t0)
-        return out
+    def counted_load(*args, **kwargs):
+        loads.append(args)
+        return load(*args, **kwargs)
 
     def checked_train(self):
         held.append(check_backbones(self.model, resnet, lite, self.cfg.seed))
@@ -1511,15 +1323,15 @@ def run_pretrained(smi, work):
 
     cwd = os.getcwd()
     os.chdir(work)  # ./ckpt is looked up from the working directory
-    trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train = timed_load, checked_train
+    trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train = counted_load, checked_train
     try:
         curriculum = run_curriculum(smi, steps=1, name="pretrained", reload=False, weights_init=None)
     finally:
         trainer_mod.load_pretrained_backbones, trainer_mod.Trainer.train = load, train
         os.chdir(cwd)
-    if len(load_s) != 1 or held != [held[0]] or not held[0]:
-        raise SystemExit(f"13a: {len(load_s)} backbone loads and {held} tensors held before the first step")
-    print(f"  13a: the backbones loaded in {load_s[0]:.3f} s (two files, "
+    if len(loads) != 1 or held != [held[0]] or not held[0]:
+        raise SystemExit(f"13a: {len(loads)} backbone loads and {held} tensors held before the first step")
+    print(f"  13a: the backbones loaded once (two files, "
           f"{sum((work / 'ckpt' / f).stat().st_size for f in os.listdir(work / 'ckpt')) / 2**20:.1f} MiB); before "
           f"the first step {held[0]} encoder tensors equal the files' (conv1 widened to the file's conv1 / 2 and / 3, "
           f"and to RandomState({DynamoConfig().seed})'s widen_conv1 on the CPU); launches per step by phase "
@@ -1552,8 +1364,6 @@ def run_pretrained(smi, work):
           f"the JAX package's two messages, and a fine_tune step from random init, loss {float(losses['loss']):.5f}")
     del bare
     torch.cuda.empty_cache()
-    return {"load_s": load_s[0], "held": held[0], "held_monodepthv2": n_md2, "launches": curriculum["launches"],
-            "per_step": curriculum["per_step"], "summary": curriculum["summary"]}
 
 
 def run_zoo(smi, work, folder, phase8_table):
@@ -1613,7 +1423,6 @@ def run_zoo(smi, work, folder, phase8_table):
     print(f"  13b: eval.depth -l {name} through a stub gdown ({gdown_args}): {len(fetched)} files unzipped into "
           f"{name}, its table equal to phase 8's (all lines but the model path), {seconds:.1f} s on {smi}; with no "
           f"gdown on PATH: FileNotFoundError({error[:90]}...)")
-    return {"seconds": seconds, "files": len(fetched)}
 
 
 def gloo_eval_records(rank, out):
@@ -1667,7 +1476,6 @@ def run_gloo_evals(smi, phase8):
     if written or not Path(two["npz"]).exists():
         raise SystemExit(f"13c: rank 1 wrote {written}, or rank 0 wrote no npz")
     print(f"  13c: rank 0 alone wrote the records; {wall:.1f} s of wall with the launch, on {smi}")
-    return {"wall_s": wall}
 
 
 def run_phase13(smi, phase7, phase8):
@@ -1677,12 +1485,10 @@ def run_phase13(smi, phase7, phase8):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
-    pretrained = run_pretrained(smi, work)
-    zoo = run_zoo(smi, work / "zoo", Path(phase7["folder"]), phase8["tables"]["kitti"])
-    gloo = run_gloo_evals(smi, phase8)
-    wall = time.perf_counter() - t0
-    print(f"phase 13: {wall:.1f} s")
-    return {"pretrained": pretrained, "zoo": zoo, "gloo_evals": gloo, "wall_s": wall}
+    run_pretrained(smi, work)
+    run_zoo(smi, work / "zoo", Path(phase7["folder"]), phase8["tables"]["kitti"])
+    run_gloo_evals(smi, phase8)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
 
 BENCH_TIMEOUT_S = 600  # a phase-14 command past it is killed (the CLI's own budget is 540 s)
@@ -1711,13 +1517,13 @@ def run_cli(args, label, timeout=BENCH_TIMEOUT_S, capture=True):
     return proc.stdout, proc.stderr, wall
 
 
-def run_bench_cli(smi, argv, batches, dtype, step_ms):
+def run_bench_cli(smi, argv, batches, dtype):
     """14a: ``python -m dynamo_depth_torch.bench.throughput`` as a user runs
     it: the last stdout line is the contract, with a finite value > 0 for
     the best of ``batches``; every leg completed and launched each kernel
     6 times per step, the warp's instances those of the operand dtype the
     leg's batch picks under ``--image_dtype auto`` (bfloat16 at b8, float32
-    at b3 and b7). Returns {"contract", "legs", "wall_s"}."""
+    at b3 and b7)."""
     from dynamo_depth_torch.config import DynamoConfig
 
     out, err, wall = run_cli(["-m", "dynamo_depth_torch.bench.throughput", *argv], f"14a throughput {dtype}")
@@ -1741,17 +1547,14 @@ def run_bench_cli(smi, argv, batches, dtype, step_ms):
                              f"{leg['warp_operand_dtype']} warp operands, expected {expected} with {operand}")
         print(f"    {dtype} b{leg['batch_size']}: {leg['examples_per_sec']:.2f} examples/s, {leg['ms_per_step']:.2f} "
               f"ms/step, {leg['flops_per_step']:.4e} FLOP/step (FlopCounterMode), MFU {100 * leg['mfu']:.3f}% of "
-              f"the {dtype} peak; {operand} warp operands, launches per step {leg['launches_per_step']}; "
-              f"the b3 step in-process: "
-              f"float32 {step_ms['float32']:.2f} ms (phase 6), bfloat16 {step_ms['bfloat16']:.2f} ms (phase 10), on {smi}")
+              f"the {dtype} peak; {operand} warp operands, launches per step {leg['launches_per_step']}, on {smi}")
     print(f"    contract: {json.dumps(contract)} ({wall:.1f} s of wall)")
-    return {"contract": contract, "legs": legs, "wall_s": wall}
 
 
 def run_entry(smi):
     """14b: ``entry()`` on the card against ``entry(device="cpu")`` with the
-    card's weights: the three outputs within ENTRY_RTOL, no kernel launched;
-    the card's forward timed (median of 5 after 2 warm-ups)."""
+    card's weights: the three outputs within ENTRY_RTOL, no kernel
+    launched."""
     import torch
 
     from dynamo_depth_torch.entry import ENTRY_OUTPUTS, entry
@@ -1761,34 +1564,23 @@ def run_entry(smi):
     fn_cpu, (model_cpu, batch_cpu) = entry(device="cpu")
     model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     reset_launch_counts()
-    times = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        card = fn(model, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    card = fn(model, batch)
     launches = launch_counts()
     if any(launches.values()):
         raise SystemExit(f"14b: entry()'s forward launched {launches}")
     cpu = fn_cpu(model_cpu, batch_cpu)
-    errs = {}
     for key, a, b in zip(ENTRY_OUTPUTS, card, cpu):
         if a.shape != b.shape or not bool(torch.isfinite(a).all()):
             raise SystemExit(f"14b: {key} of shape {tuple(a.shape)} vs {tuple(b.shape)}, or not finite")
-        errs[str(key)] = max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
-        agree(f"14b entry() {key} {tuple(a.shape)} (relative to its largest value)", errs[str(key)], ENTRY_RTOL)
-    ms = float(np.median(times[2:]))
-    print(f"  14b entry(): LiteMono forward with flow and mask at {H}x{W}, batch 1, {ms:.2f} ms on the card "
-          f"(median of 5 after 2 warm-ups), on {smi}")
-    return {"rel_err": errs, "ms": ms}
+        agree(f"14b entry() {key} {tuple(a.shape)} (relative to its largest value)",
+              max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30), ENTRY_RTOL)
+    print(f"  14b entry(): LiteMono forward with flow and mask at {H}x{W}, batch 1, on {smi}")
 
 
 def run_dryruns(smi):
     """14c: ``python -m dynamo_depth_torch.entry 1`` (NCCL) and ``... 2
     --backend=gloo`` (two ranks sharing the card): both arms completed, each
     arm's loss finite; the arms' wall seconds."""
-    records = {}
     for label, argv in (("nccl1", ["1"]), ("gloo2", ["2", "--backend=gloo"])):
         out, _, wall = run_cli(["-m", "dynamo_depth_torch.entry", *argv], f"14c dryrun {label}")
         n = argv[0]
@@ -1797,24 +1589,19 @@ def run_dryruns(smi):
         if "dryrun_multichip: both arms completed" not in out or len(losses) != 2 or \
                 not all(math.isfinite(float(v)) for _, v in losses):
             raise SystemExit(f"14c {label}: not both arms completed with finite losses:\n{out[-4000:]}")
-        records[label] = {"losses": {tag: float(v) for tag, v in losses}, "arm_wall_s": {k: float(v) for k, v in arms.items()},
-                          "wall_s": wall}
         print(f"    {label}: " + "; ".join(f"{tag} loss {v}" for tag, v in losses) + "; arms "
               + ", ".join(f"{k} {v} s" for k, v in arms.items()) + f"; {wall:.1f} s of wall with the launch, on {smi}")
-    return records
 
 
-def run_phase14(smi, step_ms):
+def run_phase14(smi):
     """Phase 14: the throughput CLI (14a), ``entry()`` (14b) and the dry
     run (14c)."""
     t0 = time.perf_counter()
-    bench = {"bfloat16": run_bench_cli(smi, [], [7, 8, 3], "bfloat16", step_ms),
-             "float32": run_bench_cli(smi, ["--compute_dtype", "float32", "--batch_size", "3"], [3], "float32", step_ms)}
-    entry = run_entry(smi)
-    dryrun = run_dryruns(smi)
-    wall = time.perf_counter() - t0
-    print(f"phase 14: {wall:.1f} s")
-    return {"bench": bench, "entry": entry, "dryrun": dryrun, "wall_s": wall}
+    run_bench_cli(smi, [], [7, 8, 3], "bfloat16")
+    run_bench_cli(smi, ["--compute_dtype", "float32", "--batch_size", "3"], [3], "float32")
+    run_entry(smi)
+    run_dryruns(smi)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
 
 B15 = 8  # phase 15: the throughput CLI's b8 leg, 983,040 px: bfloat16 warp operands under auto
@@ -1825,14 +1612,12 @@ def warp_vs_plain_bf16(img, grids, g_warp):
     bfloat16 image (widened to float32) on each of ``grids`` ({label: grid}):
     the output, d_grid (K2 with and without d_image) and d_image; and the
     output and d_grid bit-equal to the float32 instances' on the rounded
-    image. Returns the largest error of the output ("warp_fwd_bf16") and of
-    d_grid ("warp_bwd_bf16")."""
+    image."""
     import torch
 
     from dynamo_depth_torch.ops.kernels import warp
 
     img32 = img.float()
-    errs = {"warp_fwd_bf16": 0.0, "warp_bwd_bf16": 0.0}
     for label, gr in grids.items():
         out_k = warp.warp_fwd(img, gr)
         d_img_k, d_grid_k = warp.warp_bwd(img, gr, g_warp, True)
@@ -1845,11 +1630,8 @@ def warp_vs_plain_bf16(img, grids, g_warp):
         torch.cuda.synchronize()
         # The float32 instances' arithmetic after the taps: the same
         # tolerances as theirs (phase 3).
-        err = max_err(out_k, out_p)
-        errs["warp_fwd_bf16"] = max(errs["warp_fwd_bf16"], err)
-        check(f"warp_fwd_bf16 vs plain ({label})", err, 1e-5)
+        check(f"warp_fwd_bf16 vs plain ({label})", max_err(out_k, out_p), 1e-5)
         err = max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p))
-        errs["warp_bwd_bf16"] = max(errs["warp_bwd_bf16"], err)
         check(f"warp_bwd_bf16 d_grid vs plain ({label}, |d_grid| up to {float(d_grid_p.abs().max()):.1f})", err,
               1e-5 * max(1.0, float(d_grid_p.abs().max())))
         # d_image: float32 sums in no fixed order, each rounded once to
@@ -1863,30 +1645,22 @@ def warp_vs_plain_bf16(img, grids, g_warp):
                              f"rounded image: output {max_err(out_k, out_32):.3e}, d_grid "
                              f"{max_err(d_grid_k2, d_grid_32):.3e}")
         print(f"    ({label}) bit-equal to the float32 instances on the rounded image")
-    return errs
 
 
-def run_phase15(smi, mem_rate, f32_rate):
+def run_phase15(smi):
     """Phase 15: K1/K2's bfloat16-image instances at the b8 step's shapes
     (8 x 3 x 192 x 640, ``--image_dtype auto``). (b) The LiteMono fine_tune
-    step at batch 8, float32 networks: 2 warm-up and 5 timed steps with the
-    launch counts set to 0 just before and read just after (6 of each
-    bfloat16 instance per step, none of the float32 warp instances), one
-    profiled step, one more whose six warp inputs are captured and saved;
-    (a) the instances against the plain version on a uniform grid, the
-    ego-motion grid, a grid at the clamp's ties and the six step grids, and
-    bit-equal to the float32 instances on the rounded image; (b) one step
-    on the card against the CPU from the same weights, phase 5's
-    tolerances; (c) device ms of the instances alone, warm and cold, beside
-    the float32 instances' on the rounded image, the plain version's, the
-    library's (``F.grid_sample`` of the image widened to float32, the cast
-    included) and the bytes bound."""
+    step at batch 8, float32 networks: STEPS steps with the launch counts
+    set to 0 just before and read just after (6 of each bfloat16 instance
+    per step, none of the float32 warp instances), and one more whose six
+    warp inputs are captured; (a) the instances against the plain version
+    on a uniform grid, the ego-motion grid, a grid at the clamp's ties and
+    the six step grids, and bit-equal to the float32 instances on the
+    rounded image; (b) one step on the card against the CPU from the same
+    weights, phase 5's tolerances."""
     import torch
-    import torch.nn.functional as F
 
-    from dynamo_depth_torch.bench.timing import device_ms
     from dynamo_depth_torch.config import DynamoConfig
-    from dynamo_depth_torch.ops.kernels import warp
     from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
     from dynamo_depth_torch.training.trainer import Trainer
 
@@ -1901,26 +1675,11 @@ def run_phase15(smi, mem_rate, f32_rate):
     trainer = Trainer(cfg)
     batch = trainer.to_device(synthetic_batch(cfg, B15, H, W))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    step = timed_steps(trainer, batch, gen, smi, "LiteMono float32, bfloat16 warp operands")
-    profiled = profiled_step(trainer, batch, gen, step["steps"], step["ms"])
-    captured = []
-    launch_fwd = warp.warp_fwd
-
-    def capture(image, gr):
-        captured.append((image.detach().clone(), gr.detach().clone()))
-        return launch_fwd(image, gr)
-
-    warp.warp_fwd = capture
-    try:
-        trainer.train_step(batch, gen, step["steps"] + 1)
-    finally:
-        warp.warp_fwd = launch_fwd
+    checked_steps(trainer, batch, gen, smi, "LiteMono float32, bfloat16 warp operands")
+    captured = capture_warp_inputs(trainer, batch, gen, STEPS)
     if len(captured) != 6 or any(im.dtype != torch.bfloat16 or im.shape != (B15, C, H, W) for im, _ in captured):
         raise SystemExit(f"15b: captured {[(im.dtype, tuple(im.shape)) for im, _ in captured]}, expected 6 bfloat16 "
                          f"images of {(B15, C, H, W)}")
-    saved = Path(__file__).resolve().parent / "build" / "chip_smoke" / "step_warp_inputs_b8.pt"
-    saved.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"images": [im.cpu() for im, _ in captured], "grids": [gr.cpu() for _, gr in captured]}, saved)
     del trainer, batch
     torch.cuda.empty_cache()
 
@@ -1933,78 +1692,18 @@ def run_phase15(smi, mem_rate, f32_rate):
              f"grid with {int((uniform.clamp(-1, 1).abs() == 1).sum())} entries at the clamp's ties":
                  uniform.clamp(-1.0, 1.0)}
     print(f"15a: the bfloat16 instances vs plain at B={B15} C={C} {H}x{W}, the image rounded to bfloat16:")
-    errors = warp_vs_plain_bf16(img, grids, g_warp)
+    warp_vs_plain_bf16(img, grids, g_warp)
     step_img = captured[0][0]
     if any(not torch.equal(im, step_img) for im, _ in captured[::2]) or not all(
             bool(torch.isfinite(gr).all()) for _, gr in captured):
         raise SystemExit("15a: the step's warp inputs are not one image per source frame with finite grids")
-    step_errs = warp_vs_plain_bf16(step_img.contiguous(), {f"step grid {i}": gr for i, (_, gr) in enumerate(captured)},
-                                   g_warp)
-    errors = {k: max(v, step_errs[k]) for k, v in errors.items()}
+    warp_vs_plain_bf16(step_img.contiguous(), {f"step grid {i}": gr for i, (_, gr) in enumerate(captured)}, g_warp)
 
     # ---- 15b: the b8 step on the card against the CPU ----------------------
     cmp = card_vs_cpu_step(cfg)
     if cmp["launches"] != per_step:
         raise SystemExit(f"15b: the card's step launched {cmp['launches']}, expected {per_step}")
-
-    # ---- 15c: device ms ------------------------------------------------------
-    P8 = B15 * H * W
-    work = {"warp_fwd_bf16": (8 + 2 * C + 4 * C, 12 + 5 * C), "warp_bwd_bf16": (8 + 2 * C + 4 * C + 8, 14 + 10 * C),
-            "warp_fwd": (8 + 4 * C + 4 * C, 12 + 5 * C), "warp_bwd": (8 + 4 * C + 4 * C + 8, 14 + 10 * C)}
-    bounds = {}
-    for k, (nbytes, nops) in work.items():
-        t_bytes, t_ops = nbytes * P8 / mem_rate * 1e3, nops * P8 / f32_rate * 1e3
-        bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-
-    def calls(image, gr):
-        """{kernel: (bfloat16 instance, its float32 instance on the rounded
-        image, plain version, library call)}"""
-        g_req = gr.clone().requires_grad_()
-        out_plain = warp.grid_sample_plain(image, g_req)
-        out_lib = F.grid_sample(image.float(), g_req, mode="bilinear", padding_mode="border", align_corners=True)
-        wide = image.float()
-        return {
-            "warp_fwd_bf16": (lambda: warp.warp_fwd(image, gr), lambda: warp.warp_fwd(wide, gr),
-                              lambda: warp.grid_sample_plain(image, gr),
-                              lambda: F.grid_sample(image.float(), gr, mode="bilinear", padding_mode="border",
-                                                    align_corners=True)),
-            "warp_bwd_bf16": (lambda: warp.warp_bwd(image, gr, g_warp, False),
-                              lambda: warp.warp_bwd(wide, gr, g_warp, False),
-                              lambda: torch.autograd.grad(out_plain, g_req, g_warp, retain_graph=True),
-                              lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True)),
-        }
-
-    timings = {}  # (kernel, grid) -> {"ms", "f32_ms", "plain_ms", "library_ms", "ms_cold", "f32_ms_cold", "library_ms_cold"}
-    print(f"15c: device ms at B={B15} C={C} {H}x{W} (torch.profiler; cold: a 64 MB overwrite before each call) on "
-          f"{smi}:")
-    for label, image, gr in [("uniform", img, uniform), ("ego", img, grids["ego-motion grid"])] + [
-            (f"step{i}", im, gr) for i, (im, gr) in enumerate(captured)]:
-        for k, (kern, f32, plain, lib) in calls(image, gr).items():
-            step_grid = label.startswith("step")
-            t = {"ms": device_ms(kern), "f32_ms": device_ms(f32), "library_ms": device_ms(lib),
-                 "ms_cold": device_ms(kern, cold=True), "f32_ms_cold": device_ms(f32, cold=True),
-                 "library_ms_cold": device_ms(lib, cold=True),
-                 "plain_ms": None if step_grid else device_ms(plain)}
-            timings[(k, label)] = t
-            if not step_grid:
-                print(f"  {k} [{label} grid]: bfloat16 instance {fmt_ms(t['ms'])} (cold {fmt_ms(t['ms_cold'])}) | "
-                      f"float32 instance {fmt_ms(t['f32_ms'])} (cold {fmt_ms(t['f32_ms_cold'])}) | plain "
-                      f"{fmt_ms(t['plain_ms'])} | library {fmt_ms(t['library_ms'])} (cold "
-                      f"{fmt_ms(t['library_ms_cold'])}) | bound {bounds[k][0]:.4f} ({bounds[k][1]}), float32 "
-                      f"instance's {bounds[k.removesuffix('_bf16')][0]:.4f}")
-    step_means = {}
-    for k in ("warp_fwd_bf16", "warp_bwd_bf16"):
-        step_means[k] = {f: mean_ms([timings[(k, f"step{i}")][f] for i in range(6)])
-                         for f in ("ms", "f32_ms", "library_ms", "ms_cold", "f32_ms_cold", "library_ms_cold")}
-        m = step_means[k]
-        print(f"  {k} on the b8 step's six grids, mean: bfloat16 instance {fmt_ms(m['ms'])} (cold "
-              f"{fmt_ms(m['ms_cold'])}) | float32 instance {fmt_ms(m['f32_ms'])} (cold {fmt_ms(m['f32_ms_cold'])}) | "
-              f"library {fmt_ms(m['library_ms'])} (cold {fmt_ms(m['library_ms_cold'])}) | in the step "
-              f"{profiled['in_step_ms'][k]:.4f} per launch")
-    wall = time.perf_counter() - t0
-    print(f"phase 15: {wall:.1f} s")
-    return {"step": step, "profiled": profiled, "errors": errors, "card_vs_cpu_rel": cmp["rel"],
-            "timings": timings, "step_means": step_means, "bounds": bounds, "wall_s": wall}
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -2016,10 +1715,8 @@ def main():
 
     import torch.nn.functional as F
 
-    from dynamo_depth_torch.bench.timing import device_ms, median_ms
     from dynamo_depth_torch.config import DynamoConfig
     from dynamo_depth_torch.ops.kernels import build, photometric, warp
-    from dynamo_depth_torch.ops.geometry import pixel_grid
     from dynamo_depth_torch.training.synthetic import ego_motion_grid, synthetic_batch
     from dynamo_depth_torch.training.trainer import Trainer
 
@@ -2031,7 +1728,6 @@ def main():
     print(smi)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} | CUDA {torch.version.cuda} | device {name} | count {torch.cuda.device_count()}")
-    mem_rate, f32_rate = card_rates(name)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2056,12 +1752,10 @@ def main():
     target = torch.rand(B, C, H, W, device=dev, generator=gen)
     g_photo = torch.randn(B, 1, H, W, device=dev, generator=gen)
     ego = ego_motion_grid(B, H, W, seed=0).to(dev)
-    errors = {}
 
     def scale_tol(ref, rel=1e-5):
         return rel * max(1.0, float(ref.abs().max()))
 
-    errors["warp_fwd"] = errors["warp_bwd"] = 0.0
     for label, gr in (("uniform grid", grid), ("ego-motion grid", ego)):
         out_k = warp.warp_fwd(img, gr)
         img_r, grid_r = img.clone().requires_grad_(), gr.clone().requires_grad_()
@@ -2074,14 +1768,11 @@ def main():
         _, d_grid_k2 = warp.warp_bwd(img, gr, g_warp, False)
         torch.cuda.synchronize()
         # Values: one lerp, float32 with or without fused multiply-adds.
-        err = max_err(out_k, out_p)
-        errors["warp_fwd"] = max(errors["warp_fwd"], err)
-        check(f"warp_fwd vs plain ({label})", err, 1e-5)
+        check(f"warp_fwd vs plain ({label})", max_err(out_k, out_p), 1e-5)
         check(f"warp_fwd vs F.grid_sample ({label})", max_err(out_k, out_l), 1e-5)
         # d_grid is a 3-term sum scaled by (W-1)/2 = 319.5: 1e-5 of its scale.
-        err = max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p))
-        errors["warp_bwd"] = max(errors["warp_bwd"], err)
-        check(f"warp_bwd d_grid vs plain ({label})", err, scale_tol(d_grid_p))
+        check(f"warp_bwd d_grid vs plain ({label})", max(max_err(d_grid_k, d_grid_p), max_err(d_grid_k2, d_grid_p)),
+              scale_tol(d_grid_p))
         check(f"warp_bwd d_grid vs F.grid_sample ({label})", max_err(d_grid_k, d_grid_l), scale_tol(d_grid_l, 1e-4))
         # d_image: atomicAdd sums in no fixed order.
         check(f"warp_bwd d_image vs plain ({label})", max_err(d_img_k, d_img_p), scale_tol(d_img_p))
@@ -2096,114 +1787,33 @@ def main():
     torch.cuda.synchronize()
     # SSIM from 3x3 window sums in another order: a few ulps, amplified by
     # the variance ratios.
-    errors["photometric_fwd"] = max_err(out_k, out_p)
-    check("photometric_fwd vs plain", errors["photometric_fwd"], 1e-5)
-    errors["photometric_bwd"] = max(max_err(d_pred_k, d_pred_p), max_err(d_pred_k2, d_pred_p))
-    check("photometric_bwd d_pred vs plain", errors["photometric_bwd"], scale_tol(d_pred_p, 1e-4))
+    check("photometric_fwd vs plain", max_err(out_k, out_p), 1e-5)
+    check("photometric_bwd d_pred vs plain", max(max_err(d_pred_k, d_pred_p), max_err(d_pred_k2, d_pred_p)),
+          scale_tol(d_pred_p, 1e-4))
     check("photometric_bwd d_target vs plain", max_err(d_target_k, d_target_p), scale_tol(d_target_p, 1e-4))
 
-    # Exact ties. K4 where pred equals target: jnp.abs's subgradient 1 at 0
-    # gives the L1 term -(1 - w) / C * g in d_pred, where the SSIM term
-    # vanishes. K2 where the grid lies exactly on the border: jnp.clip passes
-    # half the coordinate gradient there.
+    # ---- 4. the kernels at exact ties --------------------------------------
+    # K4 where pred equals target: jnp.abs's subgradient 1 at 0 gives the L1
+    # term -(1 - w) / C * g in d_pred, where the SSIM term vanishes. K2 where
+    # the grid lies exactly on the border: jnp.clip passes half the
+    # coordinate gradient there.
     pred_r, target_r = pred.clone().requires_grad_(), pred.clone().requires_grad_()
     out_p = photometric.reprojection_loss_plain(pred_r, target_r, 0.85)
     d_pred_p, d_target_p = torch.autograd.grad(out_p, (pred_r, target_r), g_photo)
     d_pred_k, d_target_k = photometric.photometric_bwd(pred, pred, g_photo, 0.85, True)
     torch.cuda.synchronize()
-    err = max(max_err(d_pred_k, d_pred_p), max_err(d_target_k, d_target_p))
-    errors["photometric_bwd"] = max(errors["photometric_bwd"], err)
     check(f"photometric_bwd where pred == target (|d_pred| up to {float(d_pred_p.abs().max()):.3f})",
-          err, scale_tol(d_pred_p, 1e-4))
+          max(max_err(d_pred_k, d_pred_p), max_err(d_target_k, d_target_p)), scale_tol(d_pred_p, 1e-4))
     on_border = grid.clamp(-1.0, 1.0)
     img_r, grid_r = img.clone().requires_grad_(), on_border.clone().requires_grad_()
     out_p = warp.grid_sample_plain(img_r, grid_r)
     d_img_p, d_grid_p = torch.autograd.grad(out_p, (img_r, grid_r), g_warp)
     d_img_k, d_grid_k = warp.warp_bwd(img, on_border, g_warp, True)
     torch.cuda.synchronize()
-    err = max_err(d_grid_k, d_grid_p)
-    errors["warp_bwd"] = max(errors["warp_bwd"], err)
     ties = int((on_border.abs() == 1.0).sum())
-    check(f"warp_bwd d_grid on a grid with {ties} entries of exactly -1 or 1", err, scale_tol(d_grid_p))
+    check(f"warp_bwd d_grid on a grid with {ties} entries of exactly -1 or 1", max_err(d_grid_k, d_grid_p),
+          scale_tol(d_grid_p))
     check("warp_bwd d_image on that grid", max_err(d_img_k, d_img_p), scale_tol(d_img_p))
-
-    # ---- 4. timing ---------------------------------------------------------
-    P = B * H * W
-
-    def displacement(gr):
-        """How far each output pixel samples from itself, in source pixels."""
-        px = (gr + 1.0) * 0.5 * torch.tensor([W - 1.0, H - 1.0], device=dev)
-        shift = (px - pixel_grid(H, W, dev)[:, :2].reshape(1, H, W, 2)).norm(dim=-1)
-        return f"displacement max {float(shift.max()):.2f} px, median {float(shift.median()):.2f} px"
-
-    print(f"ego-motion grid: {displacement(ego)}")
-    pred_req = pred.clone().requires_grad_()
-    out_plain_ph = photometric.reprojection_loss_plain(pred_req, target, 0.85)
-    # bytes and float32 operations per output pixel at C = 3 (each input
-    # read once, each output written once)
-    work = {
-        "warp_fwd": (8 + 4 * C + 4 * C, 12 + 5 * C),
-        "warp_bwd": (8 + 4 * C + 4 * C + 8, 14 + 10 * C),
-        "photometric_fwd": (4 * C + 4 * C + 4, C * (5 * 9 + 20) + 6),
-        "photometric_bwd": (4 * C + 4 * C + 4 + 4 * C, C * (5 * 9 + 40 + 4 * 9 * 2 + 12)),
-    }
-
-    def warp_calls(gr):
-        g_req = gr.clone().requires_grad_()
-        out_plain = warp.grid_sample_plain(img, g_req)
-        out_lib = F.grid_sample(img, g_req, mode="bilinear", padding_mode="border", align_corners=True)
-        return {
-            "warp_fwd": (
-                lambda: warp.warp_fwd(img, gr),
-                lambda: warp.grid_sample_plain(img, gr),
-                lambda: F.grid_sample(img, gr, mode="bilinear", padding_mode="border", align_corners=True),
-            ),
-            "warp_bwd": (
-                lambda: warp.warp_bwd(img, gr, g_warp, False),
-                lambda: torch.autograd.grad(out_plain, g_req, g_warp, retain_graph=True),
-                lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True),
-            ),
-        }
-
-    calls = {}  # (kernel, grid): kernel, plain version, library call (None: no single call)
-    for label, gr in (("uniform", grid), ("ego", ego)):
-        calls.update({(k, label): fns for k, fns in warp_calls(gr).items()})
-    calls[("photometric_fwd", None)] = (
-        lambda: photometric.photometric_fwd(pred, target, 0.85),
-        lambda: photometric.reprojection_loss_plain(pred, target, 0.85),
-        None,
-    )
-    calls[("photometric_bwd", None)] = (
-        lambda: photometric.photometric_bwd(pred, target, g_photo, 0.85, False),
-        lambda: torch.autograd.grad(out_plain_ph, pred_req, g_photo, retain_graph=True),
-        None,
-    )
-    # ms: device time (all kernels of one call, torch.profiler); wall_ms:
-    # CUDA events around one call, which include the host's launch overhead.
-    # cold: the kernel and the library call with a cold L2.
-    timings, wall, cold = {}, {}, {}
-    for key, fns in calls.items():
-        dev_t = [None if fn is None else device_ms(fn) for fn in fns]
-        wall_t = [None if fn is None else median_ms(fn) for fn in fns]
-        # Without device activity in the profile, fall back to the events.
-        timings[key] = [d if d is not None or w is None else w for d, w in zip(dev_t, wall_t)]
-        wall[key] = wall_t
-        cold[key] = [None if fn is None else device_ms(fn, cold=True) for fn in (fns[0], fns[2])]
-    del calls, out_plain_ph
-    bounds = {}
-    print(f"timing (ms; device time from the profiler, wall = events around one call) at B={B} C={C} {H}x{W} on {smi}:")
-    for (k, label), (ms, plain_ms, lib_ms) in timings.items():
-        nbytes, nops = work[k][0] * P, work[k][1] * P
-        t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / f32_rate * 1e3
-        bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-        w = wall[(k, label)]
-        plain = "n/a" if plain_ms is None else f"{plain_ms:.4f} (wall {w[1]:.4f})"
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} (wall {w[2]:.4f})"
-        where = "" if label is None else f" [{label} grid]"
-        c_ms, c_lib = cold[(k, label)]
-        lib_cold = "" if lib_ms is None else f", library {fmt_ms(c_lib)}"
-        print(f"  {k}{where}: kernel {ms:.4f} (wall {w[0]:.4f}) | plain {plain} "
-              f"| library {lib} | bound {bounds[k][0]:.4f} ({bounds[k][1]}) | cold L2: kernel {fmt_ms(c_ms)}{lib_cold}")
 
     # ---- 5. the step on the card against the step on the CPU --------------
     card_vs_cpu_step(DynamoConfig(dataset="kitti", height=64, width=96, batch_size=2, weights_init="scratch"))
@@ -2216,67 +1826,17 @@ def main():
     trainer = Trainer(cfg)  # the card, float32, drop-path 0.4
     batch = trainer.to_device(synthetic_batch(cfg, B, cfg.height, cfg.width))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    main_path = timed_steps(trainer, batch, gen, smi, "LiteMono float32")
-    ms, counts, peak, steps = main_path["ms"], main_path["launches"], main_path["peak_bytes"], main_path["steps"]
+    checked_steps(trainer, batch, gen, smi, "LiteMono float32")
 
-    # where the step's device time goes (one extra step, profiled)
-    profiled = profiled_step(trainer, batch, gen, steps, ms, top=15)
-    in_step = profiled["in_step_ms"]
-    for k in in_step:
-        bench = timings[(k, "ego" if k.startswith("warp") else None)][0]
-        print(f"  {k}: {in_step[k]:.4f} ms per launch in the step (x{profiled['launches'][k]}), {bench:.4f} ms alone"
-              f"{' on the ego-motion grid' if k.startswith('warp') else ''}")
-
-    # ---- the warp's inputs in the step (one extra step, captured) ----------
-    captured = []
-    launch_fwd = warp.warp_fwd
-
-    def capture(image, gr):
-        captured.append((image.detach().clone(), gr.detach().clone()))
-        return launch_fwd(image, gr)
-
-    warp.warp_fwd = capture
-    try:
-        trainer.train_step(batch, gen, steps + 1)
-    finally:
-        warp.warp_fwd = launch_fwd
+    # the warp's inputs in the step (one extra step, captured)
+    captured = capture_warp_inputs(trainer, batch, gen, STEPS)
     if len(captured) != 6 or any(im.shape != img.shape or gr.shape != grid.shape for im, gr in captured):
         raise SystemExit(f"captured {len(captured)} warp inputs of the step, expected 6 of {tuple(img.shape)}")
-    torch.save({"images": [im.cpu() for im, _ in captured], "grids": [gr.cpu() for _, gr in captured]},
-               smoke_dir / "step_warp_inputs.pt")
-    # device ms alone on each captured input, with a warm and a cold L2: the
-    # kernels, and the library's forward and backward (grid_sampler_2d,
-    # d_grid only, as in the step)
-    on_step = {"warp_fwd": [], "warp_bwd": []}
-    lib_step = {"warp_fwd": [], "warp_bwd": []}
-    on_step_cold = {"warp_fwd": [], "warp_bwd": []}
-    lib_step_cold = {"warp_fwd": [], "warp_bwd": []}
-    print(f"the step's warp inputs, kernels and F.grid_sample alone on each (device ms; in the step: "
-          f"warp_fwd {in_step['warp_fwd']:.4f}, warp_bwd {in_step['warp_bwd']:.4f} per launch):")
-    for i, (im, gr) in enumerate(captured):
+    for i, (_, gr) in enumerate(captured):
         if not bool(torch.isfinite(gr).all()):
             raise SystemExit(f"step grid {i} is not finite")
-        g_req = gr.clone().requires_grad_()
-        out_lib = F.grid_sample(im, g_req, mode="bilinear", padding_mode="border", align_corners=True)
-        fns = {
-            "warp_fwd": (lambda: warp.warp_fwd(im, gr),
-                         lambda: F.grid_sample(im, gr, mode="bilinear", padding_mode="border", align_corners=True)),
-            "warp_bwd": (lambda: warp.warp_bwd(im, gr, g_warp, False),
-                         lambda: torch.autograd.grad(out_lib, g_req, g_warp, retain_graph=True)),
-        }
-        for k, (kernel_fn, lib_fn) in fns.items():
-            on_step[k].append(device_ms(kernel_fn))
-            lib_step[k].append(device_ms(lib_fn))
-            on_step_cold[k].append(device_ms(kernel_fn, cold=True))
-            lib_step_cold[k].append(device_ms(lib_fn, cold=True))
-        print(f"  grid {i}: {displacement(gr)}; " + ", ".join(
-            f"{k} {fmt_ms(on_step[k][i])} (library {fmt_ms(lib_step[k][i])}; cold L2 {fmt_ms(on_step_cold[k][i])}, "
-            f"library {fmt_ms(lib_step_cold[k][i])})" for k in fns))
-    for k in on_step:
-        ours, lib = mean_ms(on_step[k]), mean_ms(lib_step[k])
-        print(f"  {k} on the step's grids: mean {fmt_ms(ours)} ms, library {fmt_ms(lib)} ms; cold L2: "
-              f"{fmt_ms(mean_ms(on_step_cold[k]))} ms, library {fmt_ms(mean_ms(lib_step_cold[k]))} ms")
-    del captured, out_lib
+    print(f"  the step's warp inputs: {len(captured)} images of {tuple(img.shape)}, every grid finite")
+    del captured, trainer, batch
 
     # ---- 7. the curriculum from the port's entry point, on tiny_kitti -----
     phase7 = run_curriculum(smi)
@@ -2286,131 +1846,33 @@ def main():
     phase8 = run_eval(smi, phase7["folder"], phase7["work"])
 
     # ---- 9. monodepthv2: the step, the curriculum and depth eval ----------
-    phase9 = run_monodepthv2(smi, phase7["work"])
+    run_monodepthv2(smi, phase7["work"])
 
     # ---- 10. bfloat16: the LiteMono step against float32 -------------------
-    phase10 = run_bf16(smi, main_path, profiled)
+    run_bf16(smi)
 
     # ---- 11. data parallelism: torchrun, NCCL at world size 1, two gloo ranks
     print("data parallelism (phase 11):")
-    phase11 = run_ddp(smi, phase7, phase8["tables"])
-    gloo_main = phase11["gloo2"][0]["main_path"]
+    run_ddp(phase8["tables"])
 
     # ---- 12. the training visualisation, JAX folders and the bench tools ---
     print("phase 12:")
-    phase12 = run_phase12(smi, phase7, phase8["tables"])
+    run_phase12(smi, phase7, phase8["tables"])
 
     # ---- 13. the pretrained init, a zoo name, two-rank motion and odometry eval
     print("phase 13:")
-    phase13 = run_phase13(smi, phase7, phase8)
+    run_phase13(smi, phase7, phase8)
 
     # ---- 14. the throughput CLI, entry() and the dry run --------------------
     print("phase 14:")
     torch.cuda.empty_cache()  # the legs and ranks are processes of their own
-    phase14 = run_phase14(smi, {"float32": ms, "bfloat16": phase10["step"]["ms"]})
-    bench_legs = {f"{dtype}_b{leg['batch_size']}": leg for dtype, rec in phase14["bench"].items() for leg in rec["legs"]}
+    run_phase14(smi)
 
     # ---- 15. K1/K2's bfloat16-image instances at batch 8 -------------------
     print("phase 15:")
     torch.cuda.empty_cache()
-    phase15 = run_phase15(smi, mem_rate, f32_rate)
+    run_phase15(smi)
 
-    # ---- kernels line, result line -----------------------------------------
-    sources = {
-        "warp_fwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
-        "warp_bwd": ("dynamo_depth_torch/csrc/warp.cu", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:126"),
-        "photometric_fwd": ("dynamo_depth_torch/csrc/photometric.cu", "dynamo_depth_tpu/ops/pallas/photometric_kernel.py:62"),
-        "photometric_bwd": ("dynamo_depth_torch/csrc/photometric.cu", "dynamo_depth_tpu/ops/pallas/photometric_kernel.py:116"),
-    }
-    kernels = []
-    for k, (src, replaces) in sources.items():
-        warp_k = k.startswith("warp")
-        ms_k, plain_ms, lib_ms = timings[(k, "uniform" if warp_k else None)]
-        entry = {
-            "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": phase7["launches"][k], "launches_per_step_by_phase": phase7["per_step"][k],
-            "launches_fine_tune_steps": counts[k], "launches_per_step": counts[k] / steps, "max_abs_err": errors[k],
-            "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-            "library_ms": lib_ms, "wall_ms": wall[(k, "uniform" if warp_k else None)][0],
-            "in_step_ms": in_step[k], "launches_eval": phase8["launches"][k],
-            "launches_per_step_monodepthv2": phase9["step"]["launches"][k] / phase9["step"]["steps"],
-            "launches_per_step_by_phase_monodepthv2": phase9["curriculum"]["per_step"][k],
-            "in_step_ms_monodepthv2": phase9["profiled"]["in_step_ms"][k],
-            "launches_per_step_bf16": phase10["step"]["launches"][k] / phase10["step"]["steps"],
-            "in_step_ms_bf16": phase10["profiled"]["in_step_ms"][k],
-            "launches_ddp_world1": phase11["nccl1"]["launches"][k],
-            "launches_per_step_by_phase_ddp_world1": phase11["nccl1"]["per_step"][k],
-            "launches_gloo2_rank0": gloo_main["launches"][k],
-            "launches_per_rank_step_gloo2": gloo_main["launches_per_step"][0][k],
-            "ms_cold": cold[(k, "uniform" if warp_k else None)][0],
-            "library_ms_cold": cold[(k, "uniform" if warp_k else None)][1],
-            "launches_per_log_vis": phase12["vis"]["launches_per_log_vis"][k],
-            "launches_vis_curriculum": phase12["vis"]["launches"][k],
-            "launches_profile_tool": phase12["profile_tool"]["launches"][k],
-            "launches_pretrained_curriculum": phase13["pretrained"]["launches"][k],
-            "launches_per_step_by_phase_pretrained": phase13["pretrained"]["per_step"][k],
-            "launches_per_step_bench": {name: leg["launches_per_step"][k] for name, leg in bench_legs.items()},
-        }
-        if warp_k:  # "ms", "plain_ms", "library_ms" above are on the uniform grid
-            ms_e, plain_e, lib_e = timings[(k, "ego")]
-            entry.update({"ms_ego_grid": ms_e, "plain_ms_ego_grid": plain_e, "library_ms_ego_grid": lib_e,
-                          "wall_ms_ego_grid": wall[(k, "ego")][0],
-                          "ms_ego_grid_cold": cold[(k, "ego")][0], "library_ms_ego_grid_cold": cold[(k, "ego")][1],
-                          "ms_step_grids": mean_ms(on_step[k]), "library_ms_step_grids": mean_ms(lib_step[k]),
-                          "ms_step_grids_cold": mean_ms(on_step_cold[k]),
-                          "library_ms_step_grids_cold": mean_ms(lib_step_cold[k])})
-        kernels.append(entry)
-    for k, replaces in (("warp_fwd_bf16", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:57"),
-                        ("warp_bwd_bf16", "dynamo_depth_tpu/ops/pallas/warp_kernel.py:126")):
-        t, e, m = phase15["timings"][(k, "uniform")], phase15["timings"][(k, "ego")], phase15["step_means"][k]
-        kernels.append({
-            "name": k, "route": "cuda", "source": "dynamo_depth_torch/csrc/warp.cu", "replaces": replaces,
-            "launches": phase15["step"]["launches"][k], "launches_per_step": phase15["step"]["launches"][k] /
-            phase15["step"]["steps"], "max_abs_err": phase15["errors"][k],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": phase15["bounds"][k][0],
-            "bound_by": phase15["bounds"][k][1], "library_ms": t["library_ms"], "shape": [B15, C, H, W],
-            "ms_cold": t["ms_cold"], "library_ms_cold": t["library_ms_cold"],
-            "float32_instance_ms": t["f32_ms"], "float32_instance_ms_cold": t["f32_ms_cold"],
-            "ms_ego_grid": e["ms"], "plain_ms_ego_grid": e["plain_ms"], "library_ms_ego_grid": e["library_ms"],
-            "ms_ego_grid_cold": e["ms_cold"], "float32_instance_ms_ego_grid": e["f32_ms"],
-            "ms_step_grids": m["ms"], "ms_step_grids_cold": m["ms_cold"], "library_ms_step_grids": m["library_ms"],
-            "library_ms_step_grids_cold": m["library_ms_cold"], "float32_instance_ms_step_grids": m["f32_ms"],
-            "float32_instance_ms_step_grids_cold": m["f32_ms_cold"],
-            "float32_instance_bound_ms": phase15["bounds"][k.removesuffix("_bf16")][0],
-            "in_step_ms": phase15["profiled"]["in_step_ms"][k],
-            "launches_per_step_bench": {name: leg["launches_per_step"][k] for name, leg in bench_legs.items()},
-        })
-    summary = {"float32": {"ms": ms, "busy_ms": profiled["busy_ms"], "peak_bytes": peak},
-               "monodepthv2": {"ms": phase9["step"]["ms"], "busy_ms": phase9["profiled"]["busy_ms"],
-                               "peak_bytes": phase9["step"]["peak_bytes"], "curriculum": phase9["curriculum"]["summary"],
-                               "depth_eval_s": phase9["depth_eval_s"]},
-               "bfloat16": {"ms": phase10["step"]["ms"], "busy_ms": phase10["profiled"]["busy_ms"],
-                            "peak_bytes": phase10["step"]["peak_bytes"], "loss_rel_err": phase10["rel"]},
-               "ddp_world1_nccl": {p: r["ms_per_step"] for p, r in phase11["nccl1"]["summary"]["phases"].items()},
-               "gloo2_shared_card": {"step_ms": gloo_main["step_ms"],
-                                     "allreduce_bytes_per_step": gloo_main["allreduce_bytes_per_step"],
-                                     "card_vs_cpu_rel": phase11["gloo2"][0]["card_vs_cpu"]["rel"]},
-               "ddp_wall_s": phase11["wall_s"],
-               "phase12": {"log_vis_ms": phase12["vis"]["vis_ms"], "step_ms": phase12["vis"]["step_ms"],
-                           "vis_grids_ms_one_batch": phase12["vis"]["grid_ms_one_batch"],
-                           "jax_folder": phase12["jax_folder"],
-                           "grad_compare": {"loss_rel": phase12["grad_compare"]["loss_rel"],
-                                            "norm_rel": phase12["grad_compare"]["norm_rel"]},
-                           "profile_tool_ms": phase12["profile_tool"]["ms"], "wall_s": phase12["wall_s"]},
-               "phase13": {"backbone_load_s": phase13["pretrained"]["load_s"],
-                           "pretrained_curriculum": phase13["pretrained"]["summary"],
-                           "zoo_eval_depth_s": phase13["zoo"]["seconds"],
-                           "gloo_evals_wall_s": phase13["gloo_evals"]["wall_s"], "wall_s": phase13["wall_s"]},
-               "phase14": {"bench_legs": {name: {k: leg[k] for k in ("examples_per_sec", "ms_per_step", "flops_per_step",
-                                                                      "mfu")} for name, leg in bench_legs.items()},
-                           "contracts": {d: rec["contract"] for d, rec in phase14["bench"].items()},
-                           "entry": phase14["entry"], "dryrun": phase14["dryrun"], "wall_s": phase14["wall_s"]},
-               "phase15": {"ms": phase15["step"]["ms"], "busy_ms": phase15["profiled"]["busy_ms"],
-                           "peak_bytes": phase15["step"]["peak_bytes"], "in_step_ms": phase15["profiled"]["in_step_ms"],
-                           "card_vs_cpu_rel": phase15["card_vs_cpu_rel"], "wall_s": phase15["wall_s"]}}
-    print(json.dumps({"kernels": kernels, "step_ms": ms, "examples_per_s": B / ms * 1e3,
-                      "peak_bytes": peak, "curriculum": phase7["summary"], "eval": phase8, "steps": summary,
-                      "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 
